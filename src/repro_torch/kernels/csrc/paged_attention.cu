@@ -18,6 +18,8 @@
 //   * the block walks [start, length) in chunks of 64 tokens and never
 //     touches a page wholly outside that range, so padded page-table
 //     columns (frame 0) and tokens before a sliding window cost nothing;
+//     an empty range takes its own branch (the mean of V over every slot,
+//     as the TPU kernel gives);
 //   * scores: each warp takes whole tokens, its lanes stride the head
 //     dimension (coalesced K rows) and reduce with shuffles;
 //   * softmax: one warp per query row updates the running max and sum;
@@ -86,6 +88,24 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   const int* ktb = kt + (int64_t)b * P;
   const int* vtb = vt + (int64_t)b * P;
   __syncthreads();
+
+  if (st >= len) {
+    // Empty range: on the TPU every score of the P * Tp table is NEG_INF,
+    // so exp(s - m) is 1 for every slot and the output is the unweighted
+    // mean of V over all of them, padded columns included.  Same here.
+    if (tid < hd) {
+      const int S = P * Tp;
+      float sum = 0.f;
+      for (int t = 0; t < S; ++t) {
+        const int64_t row = ((int64_t)vtb[t / Tp] * Tp + t % Tp) * K + kh;
+        sum += to_f(vpool[row * hd + tid]);
+      }
+      const float mean = S > 0 ? sum / (float)S : 0.f;
+      for (int g = 0; g < G; ++g)
+        out[head_off + (int64_t)g * hd + tid] = from_f<T>(mean);
+    }
+    return;
+  }
 
   for (int t0 = st; t0 < len; t0 += kChunk) {
     // 1) scores of this chunk: one token per warp at a time

@@ -31,8 +31,9 @@ def paged_attention(q, kv_pages_k, kv_pages_v, page_table, lengths, *,
     kv_pages_*: (F, Tp, K, hd) pool frames; page_table: (B, P); lengths:
     (B,); starts: optional (B,) lower bound (sliding windows).  Tokens
     outside ``[starts[b], lengths[b])`` are masked.  A sequence with no
-    token in that range gets zeros from the kernel, where the plain
-    version averages every slot; the serving engine never asks for one.
+    token in that range gets the unweighted mean of V over all ``P * Tp``
+    slots of its table, padded columns included, from the kernel and the
+    plain version alike, as from the reference's.
     """
     if q.dim() != 4:
         raise ValueError(f"q must be (B,K,G,hd), got {tuple(q.shape)}")

@@ -103,8 +103,10 @@ class PagePool:
 
     def _drain_kernel_meters(self) -> None:
         # surface the dispatch layer's chosen-impl counts (recorded by the
-        # ops call that just ran) in this pool's meter
-        dispatch.drain_meters_into(self.meter)
+        # ops call that just ran) in this pool's meter; an unmetered pool
+        # leaves them in the module meter for the next metered one
+        if self.meter is not None:
+            dispatch.drain_meters_into(self.meter)
 
     def _zeros(self, dt: str, n: int):
         if self.device is None:

@@ -11,7 +11,6 @@ parent's pages with zero copies.
 from __future__ import annotations
 
 import dataclasses
-from collections import Counter
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -19,7 +18,6 @@ import torch
 
 from repro_torch import _dtypes
 from repro_torch.configs.base import ArchConfig, AttnSpec
-from repro_torch.kernels import dispatch
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import layers as L
 from repro_torch.models import lm
@@ -41,10 +39,9 @@ class Request:
 
 class ServingEngine:
     """``backend`` is the paged-attention and page-kernel dispatch request
-    (kernels/dispatch.py).  ``meter`` collects the kernel choices
-    (``kernel.{name}.{impl}``) and the KV pool's ``pool.*`` counters.
-    ``keep_logits`` stores each generated token's logits on its request,
-    for checking against the non-paged model."""
+    (kernels/dispatch.py); as in the reference, the engine keeps no meter
+    of its own.  ``keep_logits`` stores each generated token's logits on
+    its request, for checking against the non-paged model."""
 
     def __init__(self, cfg: ArchConfig, params, *, page_tokens: int = 16,
                  backend: str = "auto", eos_id: int = -1, device="cuda",
@@ -58,11 +55,9 @@ class ServingEngine:
         self.specs = list(cfg.block_specs())
         self.params = params
         self.device = torch.device(device)
-        self.meter = Counter()
         self.kv = PagedKV(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
                           page_tokens=page_tokens, dtype=cfg.compute_dtype,
-                          device=self.device, kernel_backend=backend,
-                          meter=self.meter)
+                          device=self.device, kernel_backend=backend)
         self.backend = backend
         self.eos_id = eos_id
         self.keep_logits = keep_logits
@@ -173,7 +168,6 @@ class ServingEngine:
             att = paged_attention(qh, frames, frames, k_pt[li], eff,
                                   v_page_table=v_pt[li], starts=starts,
                                   backend=self.backend)
-            dispatch.drain_meters_into(self.meter)
             a = att.reshape(B, 1, cfg.num_heads, cfg.head_dim)
             y = torch.einsum("bshk,hkd->bsd", a, bp["attn"]["wo"].to(dt))
             h = h + y

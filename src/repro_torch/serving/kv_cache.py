@@ -37,7 +37,7 @@ class PagedKV:
     def __init__(self, num_layers: int, kv_heads: int, head_dim: int,
                  page_tokens: int = 16, dtype=torch.bfloat16,
                  pool: Optional[PagePool] = None, device="cuda",
-                 kernel_backend: str = "auto", meter=None):
+                 kernel_backend: str = "auto"):
         self.L = num_layers
         self.K = kv_heads
         self.hd = head_dim
@@ -46,8 +46,7 @@ class PagedKV:
         self.page_elems = page_tokens * kv_heads * head_dim
         self.pool = pool or PagePool(page_elems=self.page_elems,
                                      device=device,
-                                     kernel_backend=kernel_backend,
-                                     meter=meter)
+                                     kernel_backend=kernel_backend)
         assert self.pool.page_elems == self.page_elems
         if self.pool.device is None:
             raise ValueError("PagedKV needs a device pool")

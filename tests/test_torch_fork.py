@@ -13,6 +13,7 @@ import numpy as np  # noqa: E402
 from repro.core.instance import ModelInstance as JInstance  # noqa: E402
 from repro.kernels import dispatch as jdispatch  # noqa: E402
 from repro.fork import ForkPolicy as JPolicy  # noqa: E402
+from repro.memory.pool import PagePool as JPool  # noqa: E402
 from repro.net import Network as JNetwork  # noqa: E402
 from repro.platform.node import NodeRuntime as JNode  # noqa: E402
 
@@ -21,6 +22,7 @@ from repro_torch.core.descriptor import flatten_with_names  # noqa: E402
 from repro_torch.core.instance import ModelInstance  # noqa: E402
 from repro_torch.fork import ForkPolicy  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
+from repro_torch.memory.pool import PagePool  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.net import Network  # noqa: E402
 from repro_torch.platform.node import NodeRuntime  # noqa: E402
@@ -28,11 +30,13 @@ from repro_torch.platform.node import NodeRuntime  # noqa: E402
 IMPL = {"jnp": "torch"}       # the reference's fused-XLA path <-> plain torch
 
 
-def _scenario(Net, Node, Inst, Policy, params, device_pool, **node_kw):
+def _scenario(Net, Node, Inst, Policy, params, device_pool, reset=True,
+              **node_kw):
     # both packages keep kernel choices in a module meter until a pool
     # drains them: start clean, whatever ran before in this process
-    jdispatch.reset_meters()
-    dispatch.reset_meters()
+    if reset:
+        jdispatch.reset_meters()
+        dispatch.reset_meters()
     net = Net()
     nodes = [Node(f"node{i}", net, page_elems=1024, cache_enabled=True,
                   device_pool=device_pool, **node_kw) for i in range(3)]
@@ -127,3 +131,34 @@ def test_cow_write_then_incremental_reassembly_matches_reference(
     np.testing.assert_array_equal(tout, jout)
     assert tstats == jstats
     assert tstats["assemble_patch_pages"] == 1
+
+
+@pytest.mark.parametrize("unmetered", ["device", "host"])
+def test_unmetered_pool_counts_reach_the_next_fork_meter(hello_params,
+                                                         unmetered):
+    """An unmetered pool leaves its kernel choice counts in the module
+    meter; the next metered pool drains them into its network's meter, in
+    both packages alike."""
+    np_params = jax.tree.map(np.asarray, hello_params)
+    rng = np.random.default_rng(4)
+    payload = rng.standard_normal((5, 128)).astype(np.float32)
+    jdispatch.reset_meters()
+    dispatch.reset_meters()
+    jp = JPool(page_elems=128, device=unmetered == "device")
+    tp = PagePool(page_elems=128,
+                  device="cpu" if unmetered == "device" else None)
+    for pool, data in ((jp, payload), (tp, torch.from_numpy(payload))):
+        frames = pool.alloc("float32", 5)
+        pool.write_pages("float32", frames, data)
+        pool.write_pages("float32", frames[[0, 2, 4]], data[:3])
+        pool.read_pages("float32", frames[[4, 1]])
+    assert _meter(dispatch.kernel_meters()) == \
+        _meter(jdispatch.kernel_meters())
+    assert bool(dispatch.kernel_meters()) == (unmetered == "device")
+    jnet, *_ = _scenario(JNetwork, JNode, JInstance, JPolicy, hello_params,
+                         True, reset=False)
+    net, *_ = _scenario(Network, NodeRuntime, ModelInstance, ForkPolicy,
+                        params_from_numpy(np_params, "cpu"), True,
+                        reset=False, device="cpu")
+    assert _meter(net.meter) == _meter(jnet.meter)
+    assert net.sim_time == jnet.sim_time

@@ -270,6 +270,35 @@ def test_paged_attention_window_starts():
     assert float((got - no_window).abs().max()) > 1e-4     # starts matter
 
 
+@pytest.mark.parametrize("case", ["starts_eq_lengths", "zero_length"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_empty_range_matches_reference(case, dtype):
+    """A sequence with no token in [starts, lengths) gets the unweighted
+    mean of V over all P * Tp slots of its table (the TPU kernel's result:
+    every score is NEG_INF, so every slot weighs exp(0) = 1)."""
+    B, K, G, hd, Tp, P, F = 3, 2, 2, 64, 8, 3, 12
+    q, pk, pv, pt, vt, lengths = _attn_inputs(11, B, K, G, hd, Tp, P, F)
+    if case == "starts_eq_lengths":
+        starts = np.where(np.arange(B) == 1, 0, lengths).astype(np.int32)
+    else:
+        lengths[[0, 2]] = 0
+        starts = np.zeros(B, np.int32)
+    got = paged_attention(_pt(q, dtype), _pt(pk, dtype), _pt(pv, dtype), pt,
+                          lengths, v_page_table=vt, starts=starts)
+    want = jpa_kernel(_jx(q, dtype), _jx(pk, dtype), _jx(pv, dtype),
+                      jnp.asarray(pt), jnp.asarray(lengths),
+                      v_page_table=jnp.asarray(vt),
+                      starts=jnp.asarray(starts), interpret=True)
+    tol = 3e-2 if dtype == "bfloat16" else 3e-5
+    assert float(np.abs(_f32_t(got) - _f32_j(want)).max()) < tol
+    v = _f32_t(_pt(pv, dtype))
+    for b in (0, 2):
+        mean = v[vt[b]].reshape(P * Tp, K, hd).mean(0)       # (K, hd)
+        np.testing.assert_allclose(_f32_t(got)[b],
+                                   np.broadcast_to(mean[:, None], (K, G, hd)),
+                                   atol=tol, rtol=0)
+
+
 # -- dispatch ----------------------------------------------------------------------
 
 

@@ -112,7 +112,8 @@ def test_engine_matches_reference_engine_and_model(model):
     assert len(got_logits) == n
     for a, b in zip(got_logits, want_logits):
         np.testing.assert_allclose(a.numpy(), b, atol=ATOL, rtol=0)
-    assert eng.meter["kernel.paged_attention.torch"] == tc.num_layers * (n - 1)
+    assert dispatch.kernel_meters()["kernel.paged_attention.torch"] == \
+        tc.num_layers * (n - 1)
     assert eng.kv.pool.num_allocated() == 0        # finished seqs freed
 
 
