@@ -12,13 +12,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
 3. hold each of the five kernels against its plain PyTorch version on the
    card, at the main path's shapes and at a larger one, in fp32 and bf16:
    copies must be bit-equal, attention within 3e-5 (fp32) / 3e-2 (bf16);
-   time kernel, plain version and library call with CUDA events;
+   each copy case must take the route it is built for (the bulk-copy
+   kernel with its table in the launch or in device memory, or
+   ``copy_rows``): index tables of exactly the by-value capacity and one
+   more, odd row sizes, a misaligned payload, ``scatter_patch`` onto a
+   partial last page, and attention over empty ranges; time kernel, plain
+   version and library call with CUDA events (the kernel from host ids
+   through its wrapper, the library call with ids already on the card);
 4. run the port's serve path (``repro_torch.launch.serve.main``) for
    gemma3-1b at full width: 3 nodes, a seed packed on node0, two children
    forked over the modelled RDMA network, 4 requests and the
    copy-on-write fork demo.  Every kernel's launch count must be > 0,
-   every child's parameters equal to the seed's, and every request's
-   paged-engine logits close to the non-paged model's on the same card;
+   cow_scatter and page_gather_runs must have gone through the bulk-copy
+   kernel, every child's parameters must equal the seed's, and every
+   request's paged-engine logits must be close to the non-paged model's
+   on the same card; the pages each kernel moved and the route counts are
+   printed;
 5. print one JSON line with every kernel's numbers, the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -54,6 +63,12 @@ REPLACES = {
 }
 SOURCE = {k: "src/repro_torch/kernels/csrc/paging.cu" for k in KERNELS}
 SOURCE["paged_attention"] = "src/repro_torch/kernels/csrc/paged_attention.cu"
+SOURCE["cow_scatter"] = SOURCE["page_gather_runs"] = \
+    "src/repro_torch/kernels/csrc/bulk_copy.cu"
+DESIGN = {"page_gather": "copy_rows", "page_gather_runs": "bulk-tma",
+          "cow_scatter": "bulk-tma", "cow_scatter_runs": "copy_rows",
+          "paged_attention": "block-per-head"}
+BULK = ("bulk-value", "bulk-device")
 
 
 def card_line() -> str:
@@ -85,45 +100,92 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 # ---------------------------------------------------------------------------
 
 
-def copy_cases(torch):
-    """(kernel, label, dtype, F, E, ids-or-runs) — the first case of each
-    kernel is the main path's largest call: the gemma3-1b embedding,
-    9,216 pages of 32,768 elements (assembly gathers it page by page,
-    the owner's read and the child's adopt move it as one run)."""
+def copy_cases(limits):
+    """dicts of kernel, label, dtype, F, E, spec (ids or (starts, lens)) and
+    the route the case must take.  The first case of each kernel is the
+    main path's largest call: the gemma3-1b embedding, 9,216 pages of 32,768
+    elements (assembly gathers it page by page, the owner's read and the
+    child's adopt move it as one run).  ``limits`` are the bulk-copy
+    kernel's by-value capacities."""
     rng = np.random.default_rng(0)
     E, n_emb = 32768, 9216
+    cap_ids, cap_spans = limits["ids"], limits["spans"]
+
+    def case(name, label, dtype, F, E, spec, route, **kw):
+        return dict(name=name, label=label, dtype=dtype, F=F, E=E,
+                    spec=spec, route=route, **kw)
+
+    def runs(k):                     # k runs of 1-2 pages, 1-page gaps
+        lens = 1 + np.arange(k) % 2
+        return (np.cumsum(lens + 1) - lens - 1, lens)
     return [
-        ("page_gather", "embed-assemble", torch.float32, n_emb + 64, E,
-         np.arange(64, 64 + n_emb)),
-        ("page_gather", "scattered-dup", torch.bfloat16, 4096, E,
-         rng.integers(0, 4096, 3000)),
-        ("page_gather", "single-page", torch.float32, 64, E, np.array([7])),
-        ("page_gather_runs", "embed-read", torch.float32, n_emb + 64, E,
-         ([64], [n_emb])),
-        ("page_gather_runs", "skewed-runs", torch.bfloat16, 8192, E,
-         ([0, 3000, 5000, 7000], [2500, 1, 1999, 900])),
-        ("cow_scatter", "single-page", torch.float32, 64, E, np.array([9])),
-        ("cow_scatter", "scattered", torch.bfloat16, 8192, E,
-         rng.permutation(8192)[:3000]),
-        ("cow_scatter_runs", "embed-adopt", torch.float32, n_emb + 64, E,
-         ([32], [n_emb])),
-        ("cow_scatter_runs", "skewed-runs", torch.bfloat16, 8192, E,
-         ([0, 3000, 5000, 7000], [2500, 1, 1999, 900])),
+        case("page_gather", "embed-assemble", "float32", n_emb + 64, E,
+             np.arange(64, 64 + n_emb), "copy_rows"),
+        case("page_gather", "scattered-dup", "bfloat16", 4096, E,
+             rng.integers(0, 4096, 3000), "copy_rows"),
+        case("page_gather", "single-page", "float32", 64, E, np.array([7]),
+             "copy_rows"),
+        case("page_gather_runs", "embed-read", "float32", n_emb + 64, E,
+             ([64], [n_emb]), "bulk-value"),
+        case("page_gather_runs", "skewed-runs", "bfloat16", 8192, E,
+             ([0, 3000, 5000, 7000], [2500, 1, 1999, 900]), "bulk-value"),
+        case("page_gather_runs", "spans-at-capacity", "bfloat16",
+             3 * cap_spans + 3, 4096, runs(cap_spans), "bulk-value"),
+        case("page_gather_runs", "spans-past-capacity", "bfloat16",
+             3 * cap_spans + 6, 4096, runs(cap_spans + 1), "bulk-device"),
+        case("page_gather_runs", "odd-row", "bfloat16", 256, 1001,
+             ([0, 50, 120], [40, 3, 100]), "copy_rows"),
+        case("cow_scatter", "single-page", "float32", 64, E, np.array([9]),
+             "bulk-value"),
+        case("cow_scatter", "kv-column", "float32", 1024, 4096,
+             rng.permutation(1024)[:26], "bulk-value"),
+        case("cow_scatter", "scattered", "bfloat16", 8192, E,
+             rng.permutation(8192)[:3000], "bulk-value"),
+        case("cow_scatter", "ids-at-capacity", "bfloat16", cap_ids + 64,
+             4096, rng.permutation(cap_ids + 64)[:cap_ids], "bulk-value"),
+        case("cow_scatter", "ids-past-capacity", "bfloat16", cap_ids + 64,
+             4096, rng.permutation(cap_ids + 64)[:cap_ids + 1],
+             "bulk-device"),
+        case("cow_scatter", "ids-on-device", "float32", 1024, 4096,
+             rng.permutation(1024)[:26], "bulk-device", device_ids=True),
+        case("cow_scatter", "odd-row", "float32", 256, 1001,
+             rng.permutation(256)[:100], "copy_rows"),
+        case("cow_scatter", "misaligned-payload", "float32", 64, 4096,
+             np.array([3, 9, 10]), "copy_rows", misaligned=True),
+        case("cow_scatter_runs", "embed-adopt", "float32", n_emb + 64, E,
+             ([32], [n_emb]), "copy_rows"),
+        case("cow_scatter_runs", "skewed-runs", "bfloat16", 8192, E,
+             ([0, 3000, 5000, 7000], [2500, 1, 1999, 900]), "copy_rows"),
     ]
 
 
+def routes_of(dispatch, call):
+    """Run ``call()`` and return the routes its launches took."""
+    before = dict(dispatch.routes)
+    call()
+    return sorted(k.split(".", 1)[1] for k, v in dispatch.routes.items()
+                  if v != before.get(k, 0))
+
+
 def run_copy_case(torch, case):
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.cow_scatter import ops as cs
     from repro_torch.kernels.page_gather import ops as pg
     from repro_torch.kernels.page_gather.ref import expand_runs
-    name, label, dtype, F, E, spec = case
+    name, label, F, E, spec = (case[k] for k in
+                               ("name", "label", "F", "E", "spec"))
+    dtype = getattr(torch, case["dtype"])
     dev = torch.device("cuda")
     frames = torch.randn(F, E, device=dev).to(dtype)
     runs = name.endswith("_runs")
     ids = expand_runs(*spec) if runs else np.asarray(spec)
     n = int(ids.size)
     ids_dev = torch.from_numpy(ids.astype(np.int64)).to(dev)
-    pages = torch.randn(n, E, device=dev).to(dtype)
+    pages = torch.randn(n * E + 1, device=dev).to(dtype)
+    pages = pages[1:] if case.get("misaligned") else pages[:-1]
+    pages = pages.view(n, E)
+    if case.get("device_ids"):
+        ids = ids_dev.to(torch.int32)
     if name.startswith("page_gather"):
         if runs:
             def call(backend):
@@ -131,9 +193,11 @@ def run_copy_case(torch, case):
         else:
             def call(backend):
                 return pg.page_gather(frames, ids, backend=backend)
-        got, want = call("kernel"), call("torch")
+        got = []
+        route = routes_of(dispatch, lambda: got.append(call("kernel")))
+        want = call("torch")
         torch.cuda.synchronize()
-        ok = torch.equal(got, want)
+        ok = torch.equal(got[0], want)
 
         def library():
             return frames.index_select(0, ids_dev)
@@ -145,11 +209,11 @@ def run_copy_case(torch, case):
         else:
             def call(backend, f=None):
                 return cs.cow_scatter(f, ids, pages, backend=backend)
-        call("kernel", fk)
+        route = routes_of(dispatch, lambda: call("kernel", fk))
         call("torch", fp)
         torch.cuda.synchronize()
         ok = torch.equal(fk, fp)
-        untouched = np.setdiff1d(np.arange(F), ids)
+        untouched = np.setdiff1d(np.arange(F), ids_dev.cpu().numpy())
         if untouched.size:
             u = torch.from_numpy(untouched).to(dev)
             ok = ok and torch.equal(fk[u], frames[u])
@@ -160,6 +224,9 @@ def run_copy_case(torch, case):
         kernel_target, plain_target = fk, fp
     if not ok:
         raise AssertionError(f"{name}/{label}: kernel differs from plain")
+    if route != [case["route"]]:
+        raise AssertionError(f"{name}/{label}: took {route}, expected "
+                             f"{case['route']}")
     if name.startswith("page_gather"):
         ms = time_ms(torch, lambda: call("kernel"))
         plain_ms = time_ms(torch, lambda: call("torch"))
@@ -168,29 +235,75 @@ def run_copy_case(torch, case):
         plain_ms = time_ms(torch, lambda: call("torch", plain_target))
     lib_ms = time_ms(torch, library)
     nbytes = 2 * n * E * frames.element_size()
-    return {"name": name, "case": label, "dtype": str(dtype)[6:],
-            "pages": n, "page_elems": E, "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+    return {"name": name, "case": label, "dtype": case["dtype"],
+            "design": "bulk-tma" if route[0] in BULK else "copy_rows",
+            "route": route[0], "pages": n, "page_elems": E,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": nbytes}
+
+
+def patch_cases():
+    """(label, dtype, tensor size, page elems, page ids): scatter_patch onto
+    a tensor whose last page is partial — a tail of 12 bytes alone, a bulk
+    body with a 4-byte tail, and a bf16 weight page with a 10-byte tail."""
+    return [
+        ("partial-tail-only", "float32", 5 * 4096 + 3, 4096, [4, 5, 1]),
+        ("partial-body-tail", "float32", 5 * 4096 + 1001, 4096, [5, 0]),
+        ("partial-weight-page", "bfloat16", 3 * 32768 + 5, 32768, [3, 1]),
+    ]
+
+
+def run_patch_case(torch, case):
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.cow_scatter import ops as cs
+    label, dt, size, E, ids = case
+    dtype = getattr(torch, dt)
+    dev = torch.device("cuda")
+    t = torch.randn(size, device=dev).to(dtype)
+    rows = torch.randn(len(ids), E, device=dev).to(dtype)
+
+    def call(backend):
+        return cs.scatter_patch(t, ids, rows, page_elems=E, backend=backend)
+    got = []
+    route = routes_of(dispatch, lambda: got.append(call("kernel")))
+    want = call("torch")
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], want):
+        raise AssertionError(f"scatter_patch/{label}: kernel differs")
+    if route != ["bulk-value"]:
+        raise AssertionError(f"scatter_patch/{label}: took {route}")
+    isz = t.element_size()
+    nbytes = 2 * size * isz + 2 * sum(min(E, size - i * E) for i in ids) * isz
+    return {"name": "cow_scatter", "case": f"scatter_patch-{label}",
+            "dtype": dt, "design": "bulk-tma", "route": route[0],
+            "pages": len(ids), "page_elems": E, "max_abs_err": 0.0,
+            "ms": time_ms(torch, lambda: call("kernel")),
+            "plain_ms": time_ms(torch, lambda: call("torch")),
+            "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "bytes": nbytes}
 
 
 def attention_cases():
-    """(label, B, K, G, hd, Tp, length per seq, window) — the first is the
-    main path's decode at gemma3-1b's head shape (4 fork-demo sequences of
-    about 8 tokens); then a long window batch."""
+    """(label, B, K, G, hd, Tp, length per seq, window or explicit starts)
+    — the first is the main path's decode at gemma3-1b's head shape (4
+    fork-demo sequences of about 8 tokens); then a long window batch, and
+    empty ranges (starts == lengths, and a zero length), where the output
+    is the mean of V over every slot of the sequence's table."""
     return [
         ("gemma-decode", 4, 1, 4, 256, 16, [8, 9, 9, 9], 512),
         ("gemma-long-window", 8, 1, 4, 256, 16,
          [2048, 2000, 1999, 1500, 2048, 700, 1024, 2047], 512),
         ("qwen2-heads", 3, 4, 7, 128, 16, [40, 77, 5], None),
         ("mha-global", 2, 2, 1, 64, 16, [100, 33], None),
+        ("empty-ranges", 4, 1, 4, 256, 16, [8, 0, 9, 32], [8, 0, 0, 32]),
     ]
 
 
 def run_attention_case(torch, case, dtype):
     from repro_torch.kernels.paged_attention import ops as pa
     label, B, K, G, hd, Tp, lens, window = case
+    explicit = window if isinstance(window, list) else None
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     P = max(-(-l // Tp) for l in lens) + 1           # one padded column
@@ -205,8 +318,12 @@ def run_attention_case(torch, case, dtype):
         kt[b, -(-l // Tp):] = 0
         vt[b, -(-l // Tp):] = 0
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    starts = (torch.clamp(lengths - window, min=0) if window is not None
-              else torch.zeros_like(lengths))
+    if explicit is not None:
+        starts = torch.tensor(explicit, dtype=torch.int32, device=dev)
+    elif window is not None:
+        starts = torch.clamp(lengths - window, min=0)
+    else:
+        starts = torch.zeros_like(lengths)
 
     def call(backend):
         return pa.paged_attention(q, pool, pool, kt, lengths, v_page_table=vt,
@@ -220,10 +337,13 @@ def run_attention_case(torch, case, dtype):
                              f"err {err} >= {tol}")
     ms = time_ms(torch, lambda: call("kernel"))
     plain_ms = time_ms(torch, lambda: call("torch"))
-    tokens = int((lengths - starts).sum())
+    tokens = int((lengths - starts).clamp(min=0).sum())
+    n_empty = int((starts >= lengths).sum())
     isz = q.element_size()
     nbytes = (2 * q.numel() * isz + 2 * tokens * K * hd * isz
-              + 2 * int(sum(-(-l // Tp) for l in lens)) * 4 + 2 * B * 4)
+              + n_empty * P * Tp * K * hd * isz        # V of every slot
+              + 2 * int(sum(-(-l // Tp) for l in lens) + n_empty * P) * 4
+              + 2 * B * 4)
     flops = 4 * tokens * K * G * hd
     bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
     return {"name": "paged_attention", "case": label,
@@ -314,11 +434,17 @@ def main_path(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: int(dispatch.launches.get(k, 0)) for k in KERNELS}
+    pages = {k: int(dispatch.pages_moved.get(k, 0)) for k in KERNELS}
+    routes = dict(dispatch.routes)
     peak = torch.cuda.max_memory_allocated()
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}: "
                              f"{launches}")
+    for k in ("cow_scatter", "page_gather_runs"):
+        if not any(routes.get(f"{k}.{r}", 0) for r in BULK):
+            raise AssertionError(f"main path never took {k}'s bulk-copy "
+                                 f"kernel: {routes}")
 
     seed = dict(flat_leaves(st.params))
     for i, cp in enumerate(st.child_params):
@@ -355,12 +481,15 @@ def main_path(torch):
         "children_pages_rdma": [c.stats["pages_rdma"] for c in st.children],
         "sim_time_s": snap.get("sim_time"),
         "peak_device_bytes": peak, "launches": launches,
+        "pages_moved": pages, "routes": routes,
+        "pages_per_launch": {k: pages[k] / launches[k] for k in KERNELS
+                             if k != "paged_attention"},
         "requests_checked": n_checked, "logits_max_abs_err": max(errs),
         "logits_tol": LOGIT_TOL, "near_ties": len(ties),
     }
     print("[smoke] main path: " + json.dumps(summary))
     print("[smoke] network meter: " + json.dumps(snap))
-    return launches
+    return launches, pages, routes
 
 
 def main() -> int:
@@ -368,7 +497,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, bulk_copy
 
     card = card_line()
     print(f"[smoke] card: {card}")
@@ -382,10 +511,19 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all(verbose=True)
     print(f"[smoke] kernels built in {time.perf_counter() - t0:.1f} s")
+    nvcc = subprocess.run([build.nvcc_path(), "--version"], check=True,
+                          capture_output=True, text=True, timeout=60)
+    limits = bulk_copy.limits()
+    print(f"[smoke] nvcc: {nvcc.stdout.strip().splitlines()[-1]}; "
+          f"bulk_copy by-value tables: {json.dumps(limits)}")
 
     rows = []
-    for case in copy_cases(torch):
+    for case in copy_cases(limits):
         r = run_copy_case(torch, case)
+        print("[smoke] kernel " + json.dumps(r))
+        rows.append(r)
+    for case in patch_cases():
+        r = run_patch_case(torch, case)
         print("[smoke] kernel " + json.dumps(r))
         rows.append(r)
     for case in attention_cases():
@@ -395,14 +533,17 @@ def main() -> int:
             rows.append(r)
     torch.cuda.synchronize()
 
-    launches = main_path(torch)
+    launches, pages, routes = main_path(torch)
 
     kernels = []
     for name in KERNELS:
         main_row = next(r for r in rows if r["name"] == name)  # main shape
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "design": DESIGN[name],
+            "launches": launches[name], "pages": pages[name],
+            "routes": {k.split(".", 1)[1]: v for k, v in routes.items()
+                       if k.split(".", 1)[0] == name},
             "max_abs_err": main_row["max_abs_err"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -24,8 +24,10 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paging", "paged_attention")
+SOURCES = ("paging", "bulk_copy", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -115,6 +117,16 @@ def function(lib_name: str, entry: str, argtypes):
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return fn
+
+
+def stream(device) -> int:
+    """PyTorch's current CUDA stream on ``device`` as an int, for the C
+    entry points (the raw getter where this build of PyTorch has it: it
+    costs no Python stream object per launch)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -1,19 +1,23 @@
-"""ctypes launchers of the cow_scatter kernels in ``csrc/paging.cu``.
+"""Launchers of the cow_scatter kernels.
 
 Both write in place into ``dst``: ``cow_scatter`` copies payload row ``i``
 to row ``ids[i]``, ``cow_scatter_runs`` copies payload row ``offs[i] + j``
 to row ``starts[i] + j``.  ``dst`` is read as rows of ``row_elems``
 elements and writes stop at its last element, so a tensor whose last page
-is partial is patched in place.  Destination rows must be unique.  The
-launch goes on PyTorch's current stream and does not synchronise.
+is partial is patched in place.  Destination rows must be unique.
+``cow_scatter`` runs the bulk-copy kernel (``csrc/bulk_copy.cu``), or
+``copy_rows`` (``csrc/paging.cu``) where rows or addresses are not 16-byte
+multiples; ``cow_scatter_runs`` runs ``copy_rows``.  The launch goes on
+PyTorch's current stream and does not synchronise.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build, dispatch
+from repro_torch.kernels import build, bulk_copy, dispatch
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -37,20 +41,29 @@ def _check_args(dst: torch.Tensor, pages: torch.Tensor, row_elems: int,
                              "destination's device")
 
 
-def cow_scatter(dst: torch.Tensor, ids: torch.Tensor, pages: torch.Tensor,
+def cow_scatter(dst: torch.Tensor, ids, pages: torch.Tensor,
                 row_elems: int) -> torch.Tensor:
-    """dst rows ``ids[i]`` <- pages[i], in place; returns ``dst``."""
-    _check_args(dst, pages, row_elems, ids)
+    """dst rows ``ids[i]`` <- pages[i], in place; returns ``dst``.  ``ids``
+    is a range-checked contiguous int32 numpy array or an int32 tensor on
+    dst's device."""
+    if isinstance(ids, torch.Tensor):
+        _check_args(dst, pages, row_elems, ids)
+    else:
+        _check_args(dst, pages, row_elems)
     isz = dst.element_size()
     row, limit = row_elems * isz, dst.numel() * isz
-    fn = build.function("paging", "cow_scatter",
-                        [_P, _P, _P, _L, _L, _L, _I, _P])
-    unit = build.copy_unit(row, limit, dst, pages)
-    dispatch.count_launch("cow_scatter")
-    err = fn(dst.data_ptr(), ids.data_ptr(), pages.data_ptr(),
-             int(ids.numel()), row, limit, unit,
-             torch.cuda.current_stream(dst.device).cuda_stream)
-    build.check(err, "cow_scatter")
+    route = bulk_copy.scatter_ids(dst, pages, ids, row, limit)
+    if route is None:
+        if isinstance(ids, np.ndarray):
+            ids = torch.from_numpy(ids).to(dst.device)
+        fn = build.function("paging", "cow_scatter",
+                            [_P, _P, _P, _L, _L, _L, _I, _P])
+        unit = build.copy_unit(row, limit, dst, pages)
+        err = fn(dst.data_ptr(), ids.data_ptr(), pages.data_ptr(),
+                 int(ids.numel()), row, limit, unit, build.stream(dst.device))
+        build.check(err, "cow_scatter")
+        route = "copy_rows"
+    dispatch.count_launch("cow_scatter", pages=len(ids), route=route)
     return dst
 
 
@@ -65,7 +78,8 @@ def cow_scatter_runs(dst: torch.Tensor, starts: torch.Tensor,
     fn = build.function("paging", "cow_scatter_runs",
                         [_P, _P, _P, _I, _P, _L, _L, _L, _I, _P])
     unit = build.copy_unit(row, limit, dst, pages)
-    dispatch.count_launch("cow_scatter_runs")
+    dispatch.count_launch("cow_scatter_runs", pages=int(pages.shape[0]),
+                          route="copy_rows")
     err = fn(dst.data_ptr(), starts.data_ptr(), offs.data_ptr(),
              int(starts.numel()), pages.data_ptr(), int(pages.shape[0]), row,
              limit, unit, torch.cuda.current_stream(dst.device).cuda_stream)

@@ -13,8 +13,8 @@ import torch
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.cow_scatter import kernel
 from repro_torch.kernels.cow_scatter.ref import cow_scatter_ref
-from repro_torch.kernels.page_gather.ops import (page_ids_tensor, run_offsets,
-                                                 run_table)
+from repro_torch.kernels.page_gather.ops import kernel_ids, run_table
+from repro_torch.kernels.page_gather.plan import run_offsets
 from repro_torch.kernels.page_gather.ref import expand_runs
 
 
@@ -24,6 +24,9 @@ def _payload(pages: torch.Tensor, n: int, like: torch.Tensor,
     ``like``'s device — the cast to the pool dtype of the reference."""
     if not isinstance(pages, torch.Tensor):
         raise TypeError(f"pages must be a tensor, got {type(pages)}")
+    if (pages.dtype == dtype and pages.device == like.device
+            and pages.shape == (n, row_elems) and pages.is_contiguous()):
+        return pages
     pages = pages.to(device=like.device, dtype=dtype)
     if pages.numel() != n * row_elems:
         raise ValueError(f"payload of {tuple(pages.shape)} is not "
@@ -35,15 +38,17 @@ def cow_scatter(frames: torch.Tensor, page_ids, pages, *,
                 backend: str = "auto") -> torch.Tensor:
     """Commit COW pages into pool frames: frames (F, E); page_ids (n,)
     unique; pages (n, E).  Updates ``frames`` in place and returns it."""
-    ids = page_ids_tensor(page_ids, frames.shape[0], frames.device)
-    if ids.numel() == 0:
+    ids = kernel_ids(page_ids, frames.shape[0], frames.device)
+    if len(ids) == 0:
         return frames
     impl = dispatch.resolve_backend(backend, kernel_name="cow_scatter",
                                     device=frames.device)
     E = frames.shape[1]
-    payload = _payload(pages, ids.numel(), frames, frames.dtype, E)
+    payload = _payload(pages, len(ids), frames, frames.dtype, E)
     if impl == dispatch.IMPL_TORCH:
-        return cow_scatter_ref(frames, ids, payload)
+        return cow_scatter_ref(frames, torch.as_tensor(ids,
+                                                       device=frames.device),
+                               payload)
     return kernel.cow_scatter(frames, ids, payload, E)
 
 
@@ -75,17 +80,18 @@ def scatter_patch(t: torch.Tensor, page_ids, rows, *, page_elems: int,
     padding is trimmed).  Never re-gathers unchanged pages."""
     size = t.numel()
     npages = -(-size // page_elems)
-    ids = page_ids_tensor(page_ids, npages, t.device)
-    if ids.numel() == 0:
+    ids = kernel_ids(page_ids, npages, t.device)
+    if len(ids) == 0:
         return t
     impl = dispatch.resolve_backend(backend, kernel_name="cow_scatter",
                                     device=t.device)
-    rows = _payload(rows, ids.numel(), t, rows.dtype, page_elems)
+    rows = _payload(rows, len(ids), t, rows.dtype, page_elems)
     if impl == dispatch.IMPL_TORCH:
         buf = torch.zeros(npages * page_elems, dtype=rows.dtype,
                           device=t.device)
         buf[:size] = t.reshape(-1).to(rows.dtype)
-        buf.view(npages, page_elems).index_copy_(0, ids.to(torch.long), rows)
+        buf.view(npages, page_elems).index_copy_(
+            0, torch.as_tensor(ids, device=t.device).to(torch.long), rows)
         return buf[:size].reshape(t.shape).to(t.dtype)
     out = torch.empty(t.shape, dtype=rows.dtype, device=t.device)
     out.copy_(t)

@@ -15,8 +15,11 @@ The chosen implementation is counted as ``kernel.{name}.{cuda|torch}`` in
 a module meter that pools drain into ``Network.meter``
 (:func:`drain_meters_into`), as in the reference package.  Separately,
 each kernel wrapper adds one to :data:`launches` where it launches its
-kernel: that count is never drained, so a run can show which kernels the
-main path went through.
+kernel, the pages that launch moved to :data:`pages_moved`, and, for the
+copy kernels, one to :data:`routes` under ``{entry}.{route}`` (which of the
+kernel layer's paths took the call: ``bulk-value``, ``bulk-device`` or
+``copy_rows``).  These counts are never drained, so a run can show which
+kernels and paths the main path went through.
 """
 from __future__ import annotations
 
@@ -30,8 +33,11 @@ IMPL_TORCH = "torch"    # the plain PyTorch version (ref.py)
 BACKENDS = ("auto", "kernel", "torch")
 
 _meter: Counter = Counter()
-# kernel entry point -> launches since the last reset_launches()
+# since the last reset_launches(): kernel entry point -> launches, -> pages
+# moved by them, and "{entry}.{route}" -> launches
 launches: Counter = Counter()
+pages_moved: Counter = Counter()
+routes: Counter = Counter()
 
 
 def resolve_backend(backend: str, *, kernel_name: str,
@@ -55,13 +61,18 @@ def resolve_backend(backend: str, *, kernel_name: str,
     return impl
 
 
-def count_launch(entry: str) -> None:
+def count_launch(entry: str, pages: int = 0, route: str = None) -> None:
     """Called by a kernel wrapper exactly where it launches ``entry``."""
     launches[entry] += 1
+    pages_moved[entry] += pages
+    if route is not None:
+        routes[f"{entry}.{route}"] += 1
 
 
 def reset_launches() -> None:
     launches.clear()
+    pages_moved.clear()
+    routes.clear()
 
 
 def kernel_meters() -> dict:

@@ -1,19 +1,24 @@
-"""ctypes launchers of the page_gather kernels in ``csrc/paging.cu``.
+"""Launchers of the page_gather kernels.
 
 ``page_gather`` copies frame ``ids[i]`` to output row ``i``;
 ``page_gather_runs`` copies frame ``starts[i] + j`` to row ``offs[i] + j``.
 Both write into a destination tensor the caller may provide, stopping at
 its last element, so an assembled tensor whose last page is partial is
-filled in the same pass.  The launch goes on PyTorch's current stream and
-does not synchronise.
+filled in the same pass.  ``page_gather`` runs ``copy_rows``
+(``csrc/paging.cu``); ``page_gather_runs`` runs the bulk-copy kernel
+(``csrc/bulk_copy.cu``) over the byte plan of ``plan.run_spans``, or
+``copy_rows`` where rows or addresses are not 16-byte multiples.  The
+launch goes on PyTorch's current stream and does not synchronise.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build, dispatch
+from repro_torch.kernels import build, bulk_copy, dispatch
+from repro_torch.kernels.page_gather.plan import run_offsets, run_spans
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -46,31 +51,37 @@ def page_gather(frames: torch.Tensor, ids: torch.Tensor,
     fn = build.function("paging", "page_gather",
                         [_P, _P, _P, _L, _L, _L, _I, _P])
     unit = build.copy_unit(row, limit, frames, out)
-    dispatch.count_launch("page_gather")
+    dispatch.count_launch("page_gather", pages=n, route="copy_rows")
     err = fn(frames.data_ptr(), ids.data_ptr(), out.data_ptr(), n, row,
              limit, unit, torch.cuda.current_stream(frames.device).cuda_stream)
     build.check(err, "page_gather")
     return out
 
 
-def page_gather_runs(frames: torch.Tensor, starts: torch.Tensor,
-                     offs: torch.Tensor, n_out: int,
-                     out: torch.Tensor = None) -> torch.Tensor:
-    """Run-table gather: starts/offs (runs,) int32 with ``offs`` the
-    exclusive cumsum of run lengths >= 1; ``n_out`` = sum of lengths."""
+def page_gather_runs(frames: torch.Tensor, starts: np.ndarray,
+                     lens: np.ndarray, out: torch.Tensor = None
+                     ) -> torch.Tensor:
+    """Run-table gather: host (starts, lens) int64 with ``lens >= 1``,
+    range-checked -> ``out`` (by default a new (sum(lens), E) tensor)."""
     E = frames.shape[1]
+    n_out = int(lens.sum())
     if out is None:
         out = torch.empty((n_out, E), dtype=frames.dtype,
                           device=frames.device)
-    _check_args(frames, out, starts, offs)
+    _check_args(frames, out)
     isz = frames.element_size()
     row, limit = E * isz, out.numel() * isz
-    fn = build.function("paging", "page_gather_runs",
-                        [_P, _P, _P, _I, _P, _L, _L, _L, _I, _P])
-    unit = build.copy_unit(row, limit, frames, out)
-    dispatch.count_launch("page_gather_runs")
-    err = fn(frames.data_ptr(), starts.data_ptr(), offs.data_ptr(),
-             int(starts.numel()), out.data_ptr(), int(n_out), row, limit,
-             unit, torch.cuda.current_stream(frames.device).cuda_stream)
-    build.check(err, "page_gather_runs")
+    route = bulk_copy.copy_spans(out, frames, bulk_copy.span_table(
+        *run_spans(starts, lens, row, limit)))
+    if route is None:
+        st, offs = run_offsets(starts, lens, frames.device)
+        fn = build.function("paging", "page_gather_runs",
+                            [_P, _P, _P, _I, _P, _L, _L, _L, _I, _P])
+        unit = build.copy_unit(row, limit, frames, out)
+        err = fn(frames.data_ptr(), st.data_ptr(), offs.data_ptr(),
+                 int(st.numel()), out.data_ptr(), n_out, row, limit, unit,
+                 build.stream(frames.device))
+        build.check(err, "page_gather_runs")
+        route = "copy_rows"
+    dispatch.count_launch("page_gather_runs", pages=n_out, route=route)
     return out

@@ -16,16 +16,32 @@ from repro_torch.kernels.page_gather.ref import (page_gather_ref,
                                                  page_gather_runs_ref)
 
 
-def page_ids_tensor(page_ids, num_frames: int, device) -> torch.Tensor:
-    """Page ids as a contiguous int32 tensor on ``device``.  Host ids are
-    range-checked here, where it costs no device round trip: a kernel
-    would read or write out of bounds where PyTorch indexing raises."""
+def kernel_ids(page_ids, num_frames: int, device):
+    """Page ids for a kernel call: a tensor becomes a contiguous int32
+    tensor on ``device`` (not read back, which would synchronise); host ids
+    become a contiguous int32 numpy array, range-checked here, where it
+    costs no device round trip: a kernel would read or write out of bounds
+    where PyTorch indexing raises."""
     if isinstance(page_ids, torch.Tensor):
-        return page_ids.to(device=device, dtype=torch.int32).contiguous()
-    ids = np.atleast_1d(np.asarray(page_ids, np.int64)).ravel()
+        return page_ids.to(device=device, dtype=torch.int32).reshape(-1) \
+            .contiguous()
+    ids = np.asarray(page_ids)
+    if ids.dtype == np.int32 and ids.ndim == 1 and ids.flags.c_contiguous:
+        # the pool's own tables: one reduction, negatives wrap past the end
+        if ids.size and ids.view(np.uint32).max() >= num_frames:
+            raise IndexError(f"page ids out of range [0, {num_frames})")
+        return ids
+    ids = np.atleast_1d(np.asarray(ids, np.int64)).ravel()
     if ids.size and (ids.min() < 0 or ids.max() >= num_frames):
         raise IndexError(f"page ids out of range [0, {num_frames})")
-    return torch.from_numpy(ids.astype(np.int32)).to(device)
+    return ids.astype(np.int32)
+
+
+def page_ids_tensor(page_ids, num_frames: int, device) -> torch.Tensor:
+    """Page ids as a contiguous int32 tensor on ``device`` (host ids
+    range-checked, as in :func:`kernel_ids`)."""
+    return torch.as_tensor(kernel_ids(page_ids, num_frames, device),
+                           device=device)
 
 
 def run_table(starts, lens, num_frames: int):
@@ -38,13 +54,6 @@ def run_table(starts, lens, num_frames: int):
                         or (starts + lens).max() > num_frames):
         raise IndexError(f"runs out of range [0, {num_frames})")
     return starts, lens
-
-
-def run_offsets(starts, lens, device):
-    """Device (starts, offs) int32 tables; offs = exclusive cumsum."""
-    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
-    return (torch.from_numpy(starts.astype(np.int32)).to(device),
-            torch.from_numpy(offs.astype(np.int32)).to(device))
 
 
 def _check_frames(frames) -> None:
@@ -81,8 +90,7 @@ def page_gather_runs(frames: torch.Tensor, starts, lens, *,
                                     device=frames.device)
     if impl == dispatch.IMPL_TORCH:
         return page_gather_runs_ref(frames, starts, lens)
-    st, offs = run_offsets(starts, lens, frames.device)
-    return kernel.page_gather_runs(frames, st, offs, int(lens.sum()))
+    return kernel.page_gather_runs(frames, starts, lens)
 
 
 def gather_assemble(frames: torch.Tensor, page_ids, shape, *,
