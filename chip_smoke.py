@@ -95,6 +95,26 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time of one ``fn()`` alone: ``reps`` calls captured in a CUDA
+    graph and replayed, so that none of them waits for the host."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -178,7 +198,8 @@ def run_copy_case(torch, case):
     dev = torch.device("cuda")
     frames = torch.randn(F, E, device=dev).to(dtype)
     runs = name.endswith("_runs")
-    ids = expand_runs(*spec) if runs else np.asarray(spec)
+    # host ids as the pool passes them (int32 numpy)
+    ids = expand_runs(*spec) if runs else np.asarray(spec, np.int32)
     n = int(ids.size)
     ids_dev = torch.from_numpy(ids.astype(np.int64)).to(dev)
     pages = torch.randn(n * E + 1, device=dev).to(dtype)
@@ -228,18 +249,32 @@ def run_copy_case(torch, case):
         raise AssertionError(f"{name}/{label}: took {route}, expected "
                              f"{case['route']}")
     if name.startswith("page_gather"):
-        ms = time_ms(torch, lambda: call("kernel"))
-        plain_ms = time_ms(torch, lambda: call("torch"))
+        def kern():
+            return call("kernel")
+
+        def plain():
+            return call("torch")
     else:
-        ms = time_ms(torch, lambda: call("kernel", kernel_target))
-        plain_ms = time_ms(torch, lambda: call("torch", plain_target))
-    lib_ms = time_ms(torch, library)
+        def kern():
+            return call("kernel", kernel_target)
+
+        def plain():
+            return call("torch", plain_target)
     nbytes = 2 * n * E * frames.element_size()
+    reps = 4 if nbytes > (256 << 20) else 20
+    # device-only times where the call uploads nothing (a graph cannot
+    # capture a copy from pageable host memory)
+    capturable = route[0] == "bulk-value" or case.get("device_ids")
     return {"name": name, "case": label, "dtype": case["dtype"],
             "design": "bulk-tma" if route[0] in BULK else "copy_rows",
             "route": route[0], "pages": n, "page_elems": E,
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": 0.0, "ms": time_ms(torch, kern),
+            "plain_ms": time_ms(torch, plain),
+            "library_ms": time_ms(torch, library),
+            "device_ms": (device_ms(torch, kern, reps) if capturable
+                          else None),
+            "library_device_ms": device_ms(torch, library, reps),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "bytes": nbytes}
 
 
@@ -280,7 +315,9 @@ def run_patch_case(torch, case):
             "pages": len(ids), "page_elems": E, "max_abs_err": 0.0,
             "ms": time_ms(torch, lambda: call("kernel")),
             "plain_ms": time_ms(torch, lambda: call("torch")),
-            "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None,
+            "device_ms": device_ms(torch, lambda: call("kernel"), 20),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "bytes": nbytes}
 
 
@@ -337,6 +374,7 @@ def run_attention_case(torch, case, dtype):
                              f"err {err} >= {tol}")
     ms = time_ms(torch, lambda: call("kernel"))
     plain_ms = time_ms(torch, lambda: call("torch"))
+    dev_ms = device_ms(torch, lambda: call("kernel"), 20)
     tokens = int((lengths - starts).clamp(min=0).sum())
     n_empty = int((starts >= lengths).sum())
     isz = q.element_size()
@@ -349,7 +387,7 @@ def run_attention_case(torch, case, dtype):
     return {"name": "paged_attention", "case": label,
             "dtype": str(dtype)[6:], "B": B, "K": K, "G": G, "hd": hd,
             "tokens": tokens, "max_abs_err": err, "tol": tol, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
+            "plain_ms": plain_ms, "library_ms": None, "device_ms": dev_ms,
             "bound_ms": bound_s * 1e3,
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / FP32_FLOPS_PER_S else "operations"),
@@ -517,6 +555,11 @@ def main() -> int:
     print(f"[smoke] nvcc: {nvcc.stdout.strip().splitlines()[-1]}; "
           f"bulk_copy by-value tables: {json.dumps(limits)}")
 
+    print("[smoke] kernel rows: ms, plain_ms and library_ms are CUDA-event "
+          "times of one call each (the kernel from host ids through its "
+          "wrapper, the library call with ids already on the card); "
+          "device_ms and library_device_ms are device time alone (CUDA-graph "
+          "replay)")
     rows = []
     for case in copy_cases(limits):
         r = run_copy_case(torch, case)
@@ -549,6 +592,8 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            "device_ms": main_row["device_ms"],
+            "library_device_ms": main_row.get("library_device_ms"),
             "case": main_row["case"], "dtype": main_row["dtype"]})
     print(json.dumps({"kernels": kernels}))
     print(card_line())

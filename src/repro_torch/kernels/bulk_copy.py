@@ -44,7 +44,10 @@ def limits() -> dict:
 
 def span_table(src_off, dst_off, nbytes) -> np.ndarray:
     """The kernel's (3, n) int64 table: offsets and cumulative ends."""
-    return np.stack([src_off, dst_off, np.cumsum(nbytes)]).astype(np.int64)
+    table = np.empty((3, len(nbytes)), np.int64)
+    table[0], table[1] = src_off, dst_off
+    np.cumsum(nbytes, out=table[2])
+    return table
 
 
 def scatter_ids(dst: torch.Tensor, src: torch.Tensor, ids, row_bytes: int,

@@ -65,12 +65,6 @@ constexpr int kSpansMid = kSpansMax < 256 ? kSpansMax : 256;
 #ifndef BULK_BLOCKS_PER_SM
 #define BULK_BLOCKS_PER_SM 2
 #endif
-#ifndef BULK_CONTIGUOUS      // 1: each block takes one contiguous range of
-#define BULK_CONTIGUOUS 0    // chunks instead of every gridDim-th chunk
-#endif
-#ifndef BULK_EVICT_FIRST     // 1: L2 evict-first hints on the bulk copies
-#define BULK_EVICT_FIRST 0
-#endif
 constexpr int kChunk = BULK_CHUNK_KB << 10;   // bytes per stage
 constexpr int kStages = BULK_STAGES;
 constexpr int kBlocksPerSm = BULK_BLOCKS_PER_SM;
@@ -107,32 +101,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-#if BULK_EVICT_FIRST
-__device__ __forceinline__ uint64_t evict_first() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-               : "=l"(policy));
-  return policy;
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t smem, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem),
-      "l"(src), "r"(bytes), "r"(bar), "l"(evict_first())
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t smem,
-                                           uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
-      " [%0], [%1], %2, %3;" ::"l"(dst),
-      "r"(smem), "r"(bytes), "l"(evict_first())
-      : "memory");
-}
-#else
 __device__ __forceinline__ void bulk_load(uint32_t smem, const void* src,
                                           uint32_t bytes, uint32_t bar) {
   asm volatile(
@@ -149,7 +117,6 @@ __device__ __forceinline__ void bulk_store(void* dst, uint32_t smem,
                "r"(smem), "r"(bytes)
                : "memory");
 }
-#endif
 
 // ---- plans: which bytes go where -------------------------------------------
 // A plan lays its spans end to end in a "plan space" of total() bytes.
@@ -269,22 +236,12 @@ bulk_copy(const __grid_constant__ Plan p) {
 
   const int64_t total = p.total();
   const int64_t nch = (total + kChunk - 1) / kChunk;
-#if BULK_CONTIGUOUS
-  const int64_t per = (nch + gridDim.x - 1) / gridDim.x;
-  const int64_t k0 = (int64_t)blockIdx.x * per;
-  const int64_t nk = k0 < nch ? (nch - k0 < per ? nch - k0 : per) : 0;
-  auto chunk = [&](int64_t k, int64_t& cs, int64_t& ce) {
-    cs = (k0 + k) * kChunk;
-    ce = cs + kChunk < total ? cs + kChunk : total;
-  };
-#else
   const int64_t nk =
       blockIdx.x < nch ? (nch - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   auto chunk = [&](int64_t k, int64_t& cs, int64_t& ce) {
     cs = ((int64_t)blockIdx.x + k * gridDim.x) * kChunk;
     ce = cs + kChunk < total ? cs + kChunk : total;
   };
-#endif
   int64_t first[kStages];   // each stage's first span: one search a chunk
   auto load = [&](int64_t k) {
     int64_t cs, ce;

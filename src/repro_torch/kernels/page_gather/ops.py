@@ -46,10 +46,11 @@ def page_ids_tensor(page_ids, num_frames: int, device) -> torch.Tensor:
 
 def run_table(starts, lens, num_frames: int):
     """Filter zero-length runs and range-check: host (starts, lens) int64."""
-    starts = np.atleast_1d(np.asarray(starts, np.int64)).ravel()
-    lens = np.atleast_1d(np.asarray(lens, np.int64)).ravel()
+    starts = np.asarray(starts, np.int64).reshape(-1)
+    lens = np.asarray(lens, np.int64).reshape(-1)
     keep = lens > 0
-    starts, lens = starts[keep], lens[keep]
+    if not keep.all():
+        starts, lens = starts[keep], lens[keep]
     if starts.size and (starts.min() < 0
                         or (starts + lens).max() > num_frames):
         raise IndexError(f"runs out of range [0, {num_frames})")

@@ -19,16 +19,19 @@ def run_spans(starts, lens, row_bytes: int, limit_bytes: int):
     nbytes)``, one span per run of nonzero length, run-major.  Destination
     bytes at or past ``limit_bytes`` are dropped: the span that crosses it
     is trimmed, those past it are left out."""
-    starts = np.atleast_1d(np.asarray(starts, np.int64)).ravel()
-    lens = np.atleast_1d(np.asarray(lens, np.int64)).ravel()
+    starts = np.asarray(starts, np.int64).reshape(-1)
+    lens = np.asarray(lens, np.int64).reshape(-1)
     keep = lens > 0
-    starts, lens = starts[keep], lens[keep]
+    if not keep.all():
+        starts, lens = starts[keep], lens[keep]
     nbytes = lens * row_bytes
-    dst = np.cumsum(nbytes) - nbytes
-    src = starts * row_bytes
-    nbytes = np.minimum(nbytes, limit_bytes - dst)
-    keep = nbytes > 0
-    return src[keep], dst[keep], nbytes[keep]
+    end = np.cumsum(nbytes)
+    src, dst = starts * row_bytes, end - nbytes
+    if end.size and end[-1] > limit_bytes:
+        nbytes = np.minimum(nbytes, limit_bytes - dst)
+        keep = nbytes > 0
+        src, dst, nbytes = src[keep], dst[keep], nbytes[keep]
+    return src, dst, nbytes
 
 
 def run_offsets(starts, lens, device):

@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_copies [--sweep]
 
 1. device: each copy's device time alone at the main path's shapes
-   (the calls queued behind a sleep kernel, so none waits for the host),
+   (the calls replayed from a CUDA graph, so none waits for the host),
    beside one library call computing the same function (``index_copy_``
    or ``index_select``, ids already on the card) and a plain memcpy of
    the same bytes;
@@ -11,8 +11,8 @@
    call from device ids), and, for a one-page ``cow_scatter``, the
    wrapper's host time stage by stage;
 3. ``--sweep``: ``csrc/bulk_copy.cu`` rebuilt with other ring shapes
-   (``-D BULK_*``: chunk size, stages, blocks per SM, chunk order, L2
-   hints) and timed on the device at the large copies.
+   (``-D BULK_*``: chunk size, stages, blocks per SM) and timed on the
+   device at the large copies.
 
 Prints one JSON line per row and writes them all to ``--out``.  Needs a
 CUDA card; fails without one.
@@ -39,27 +39,30 @@ from repro_torch.kernels.page_gather import ops as pg
 from repro_torch.kernels.page_gather.plan import run_spans
 from repro_torch.kernels.page_gather.ref import expand_runs
 
-SLEEP_CYCLES = 100_000_000          # ~60 ms of device time to queue behind
 E = 32768                           # elements of a weight page
 
 
-def device_ms(fn, n: int) -> float:
-    """Device time of one ``fn()``: ``n`` calls queued behind a sleep kernel
-    run back to back, timed with CUDA events.  Raises if the host could
-    not queue them all before the sleep ended."""
+def device_ms(fn, n: int, graph: bool = True) -> float:
+    """Device time of one ``fn()``, timed with CUDA events over ``n`` calls.
+    With ``graph``, the calls are captured into a CUDA graph and replayed,
+    so none of them waits for the host; without it (for calls that take
+    long on the device) they are simply launched in a row."""
     fn()
     torch.cuda.synchronize()
+    run = lambda: [fn() for _ in range(n)]      # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
+        run()
+        torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
     a.record()
-    for _ in range(n):
-        fn()
+    run()
     b.record()
-    started = a.query()         # False: the sleep still runs, nothing waited
     b.synchronize()
-    if started:
-        raise RuntimeError("host slower than the sleep: raise SLEEP_CYCLES")
     return a.elapsed_time(b) / n
 
 
@@ -140,7 +143,7 @@ def profile_case(case):
 
 def host_stages():
     """Host time, stage by stage, of cow_scatter of one fp32 page."""
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     frames = torch.zeros(64, E, device=dev)
     pages = torch.ones(1, E, device=dev)
     ids = np.array([9], np.int32)
@@ -171,11 +174,9 @@ def host_stages():
 
 # ---- the sweep of ring shapes -------------------------------------------------
 
-VARIANTS = [  # chunk KB, stages, blocks per SM, contiguous, evict-first
-    (16, 4, 2, 0, 0), (8, 4, 4, 0, 0), (8, 8, 2, 0, 0), (16, 2, 4, 0, 0),
-    (16, 3, 4, 0, 0), (16, 6, 2, 0, 0), (32, 2, 2, 0, 0), (32, 3, 2, 0, 0),
-    (32, 4, 1, 0, 0), (64, 2, 1, 0, 0), (64, 3, 1, 0, 0), (16, 4, 2, 1, 0),
-    (32, 3, 2, 1, 0), (16, 4, 2, 0, 1), (32, 3, 2, 0, 1),
+VARIANTS = [  # chunk KB, stages, blocks per SM
+    (16, 4, 2), (8, 4, 4), (8, 8, 2), (16, 2, 4), (16, 3, 4), (16, 6, 2),
+    (32, 2, 2), (32, 3, 2), (32, 4, 1), (64, 2, 1), (64, 3, 1),
 ]
 
 
@@ -187,8 +188,7 @@ def sweep():
     for v in VARIANTS:
         tag = "_".join(map(str, v))
         defs = [f"-DBULK_CHUNK_KB={v[0]}", f"-DBULK_STAGES={v[1]}",
-                f"-DBULK_BLOCKS_PER_SM={v[2]}", f"-DBULK_CONTIGUOUS={v[3]}",
-                f"-DBULK_EVICT_FIRST={v[4]}"]
+                f"-DBULK_BLOCKS_PER_SM={v[2]}"]
         lib = out_dir / f"libbulk_{tag}.so"
         procs[v] = (lib, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, *defs, "-o", str(lib),
@@ -211,8 +211,7 @@ def sweep():
     rows = []
     for v, (lib, proc) in procs.items():
         log, _ = proc.communicate()
-        row = dict(zip(("chunk_kb", "stages", "blocks_per_sm", "contiguous",
-                        "evict_first"), v))
+        row = dict(zip(("chunk_kb", "stages", "blocks_per_sm"), v))
         if proc.returncode != 0:
             row["error"] = log.strip().splitlines()[-1:]
             rows.append(row)
@@ -231,13 +230,13 @@ def sweep():
                 raise RuntimeError(f"variant {v}: error {err}")
         row["embed_read_ms"] = device_ms(lambda: call(
             spans, emb_out.data_ptr(), emb.data_ptr(), emb_tab.ctypes.data,
-            None, 1), 10)
+            None, 1), 10, graph=False)
         row["skewed_runs_ms"] = device_ms(lambda: call(
             spans, sk_out.data_ptr(), sk.data_ptr(), sk_tab.ctypes.data, None,
-            sk_tab.shape[1]), 10)
+            sk_tab.shape[1]), 10, graph=False)
         row["scatter_3000_ms"] = device_ms(lambda: call(
             scat, sk.data_ptr(), pages.data_ptr(), ids.ctypes.data, None,
-            3000, E * 2, sk.numel() * 2), 10)
+            3000, E * 2, sk.numel() * 2), 10, graph=False)
         torch.cuda.synchronize()
         assert torch.equal(emb_out, emb[64:]), f"variant {v} is wrong"
         rows.append(row)
@@ -261,12 +260,15 @@ def main(argv=None) -> int:
     build.build_all()
     rows = [{"card": card(), "torch": torch.__version__,
              "limits": bulk_copy.limits()}]
-    rows += [profile_case(c) for c in copy_cases()]
+    for c in copy_cases():
+        rows.append(profile_case(c))
+        print(json.dumps(rows[-1]), flush=True)
     rows.append({"host_stages_us": host_stages()})
+    print(json.dumps(rows[-1]), flush=True)
     if args.sweep:
-        rows += sweep()
-    for r in rows:
-        print(json.dumps(r))
+        for r in sweep():
+            rows.append(r)
+            print(json.dumps(r), flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     Path(args.out).write_text(json.dumps(rows, indent=1))
     return 0
