@@ -82,6 +82,6 @@ def cow_scatter_runs(dst: torch.Tensor, starts: torch.Tensor,
                           route="copy_rows")
     err = fn(dst.data_ptr(), starts.data_ptr(), offs.data_ptr(),
              int(starts.numel()), pages.data_ptr(), int(pages.shape[0]), row,
-             limit, unit, torch.cuda.current_stream(dst.device).cuda_stream)
+             limit, unit, build.stream(dst.device))
     build.check(err, "cow_scatter_runs")
     return dst

@@ -81,11 +81,9 @@ def kernel_meters() -> dict:
 
 
 def drain_meters_into(meter) -> None:
-    """Fold (and clear) the kernel meter into a Counter-like ``meter``; a
-    ``meter`` of None drops the counts."""
-    if meter is not None:
-        for k, v in _meter.items():
-            meter[k] += v
+    """Fold (and clear) the kernel meter into a Counter-like ``meter``."""
+    for k, v in _meter.items():
+        meter[k] += v
     _meter.clear()
 
 

@@ -53,7 +53,7 @@ def page_gather(frames: torch.Tensor, ids: torch.Tensor,
     unit = build.copy_unit(row, limit, frames, out)
     dispatch.count_launch("page_gather", pages=n, route="copy_rows")
     err = fn(frames.data_ptr(), ids.data_ptr(), out.data_ptr(), n, row,
-             limit, unit, torch.cuda.current_stream(frames.device).cuda_stream)
+             limit, unit, build.stream(frames.device))
     build.check(err, "page_gather")
     return out
 

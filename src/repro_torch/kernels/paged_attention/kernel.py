@@ -55,6 +55,6 @@ def paged_attention(q: torch.Tensor, kv_pages_k: torch.Tensor,
              page_table.data_ptr(), v_page_table.data_ptr(),
              lengths.data_ptr(), starts.data_ptr(), out.data_ptr(),
              B, K, G, hd, Tp, P, hd ** -0.5, _DTYPES[q.dtype],
-             torch.cuda.current_stream(dev).cuda_stream)
+             build.stream(dev))
     build.check(err, "paged_attention")
     return out

@@ -344,9 +344,9 @@ def test_dispatch_meters_and_launch_counts():
     sink = Counter()
     dispatch.drain_meters_into(sink)
     assert sum(sink.values()) == 2 and not dispatch.kernel_meters()
-    pg.page_gather(f, [0])
-    dispatch.drain_meters_into(None)           # no meter: counts dropped
-    assert not dispatch.kernel_meters()
+    pg.page_gather(f, [0])                     # kept until a meter drains
+    assert dispatch.kernel_meters() == {"kernel.page_gather.torch": 1}
+    dispatch.reset_meters()
     assert not dispatch.launches               # the plain versions launch nothing
     with pytest.raises(ValueError):
         dispatch.resolve_backend("jnp", kernel_name="page_gather",
