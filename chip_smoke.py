@@ -18,7 +18,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    more, odd row sizes, a misaligned payload, ``scatter_patch`` onto a
    partial last page, and attention over empty ranges; time kernel, plain
    version and library call with CUDA events (the kernel from host ids
-   through its wrapper, the library call with ids already on the card);
+   through its wrapper, the library call with ids already on the card),
+   the device time alone (CUDA-graph replay) and the host time of one
+   call, and split one page's ``cow_scatter`` call into its host stages;
 4. run the port's serve path (``repro_torch.launch.serve.main``) for
    gemma3-1b at full width: 3 nodes, a seed packed on node0, two children
    forked over the modelled RDMA network, 4 requests and the
@@ -113,6 +115,19 @@ def device_ms(torch, fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def host_us(torch, fn, reps: int = 50) -> float:
+    """Host time of one ``fn()`` in microseconds, until it returns: the
+    median of ``reps`` calls, each made with the card idle."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +276,7 @@ def run_copy_case(torch, case):
         def plain():
             return call("torch", plain_target)
     nbytes = 2 * n * E * frames.element_size()
-    reps = 4 if nbytes > (256 << 20) else 20
+    reps = 10 if nbytes > (256 << 20) else 20
     # device-only times where the call uploads nothing (a graph cannot
     # capture a copy from pageable host memory)
     capturable = route[0] == "bulk-value" or case.get("device_ids")
@@ -274,8 +289,47 @@ def run_copy_case(torch, case):
             "device_ms": (device_ms(torch, kern, reps) if capturable
                           else None),
             "library_device_ms": device_ms(torch, library, reps),
+            "host_us": host_us(torch, kern),
+            "library_host_us": host_us(torch, library),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "bytes": nbytes}
+
+
+def host_stages(torch):
+    """Host microseconds of each stage of a one-page fp32 ``cow_scatter``
+    through its wrapper, beside the whole call and ``index_copy_``."""
+    import ctypes
+    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.cow_scatter import kernel, ops as cs
+    from repro_torch.kernels.page_gather.ops import kernel_ids
+    E = 32768
+    dev = torch.device("cuda", torch.cuda.current_device())
+    frames = torch.zeros(64, E, device=dev)
+    pages = torch.ones(1, E, device=dev)
+    ids = np.array([9], np.int32)
+    ids_dev = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    isz = frames.element_size()
+    fn = build.function("bulk_copy", "bulk_scatter_ids",
+                        (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 3
+                        + (ctypes.c_void_p,))
+    fp, pp = frames.data_ptr(), pages.data_ptr()
+    stream = build.stream(dev)
+    stages = {
+        "kernel_ids": lambda: kernel_ids(ids, 64, dev),
+        "resolve_backend": lambda: dispatch.resolve_backend(
+            "auto", kernel_name="cow_scatter", device=dev),
+        "payload": lambda: cs._payload(pages, 1, frames, frames.dtype, E),
+        "check_args": lambda: kernel._check_args(frames, pages, E),
+        "stream": lambda: build.stream(dev),
+        "ids_pointer": lambda: ids.ctypes.data,
+        "c_call_and_launch": lambda: fn(fp, pp, ids.ctypes.data, None, 1,
+                                        E * isz, 64 * E * isz, stream),
+        "count_launch": lambda: dispatch.count_launch(
+            "cow_scatter", pages=1, route="bulk-value"),
+        "whole_wrapper": lambda: cs.cow_scatter(frames, ids, pages),
+        "index_copy_": lambda: frames.index_copy_(0, ids_dev, pages),
+    }
+    return {k: host_us(torch, f, 2000) for k, f in stages.items()}
 
 
 def patch_cases():
@@ -317,6 +371,7 @@ def run_patch_case(torch, case):
             "plain_ms": time_ms(torch, lambda: call("torch")),
             "library_ms": None,
             "device_ms": device_ms(torch, lambda: call("kernel"), 20),
+            "host_us": host_us(torch, lambda: call("kernel")),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "bytes": nbytes}
 
@@ -559,7 +614,7 @@ def main() -> int:
           "times of one call each (the kernel from host ids through its "
           "wrapper, the library call with ids already on the card); "
           "device_ms and library_device_ms are device time alone (CUDA-graph "
-          "replay)")
+          "replay); host_us and library_host_us the host time of one call")
     rows = []
     for case in copy_cases(limits):
         r = run_copy_case(torch, case)
@@ -569,6 +624,8 @@ def main() -> int:
         r = run_patch_case(torch, case)
         print("[smoke] kernel " + json.dumps(r))
         rows.append(r)
+    print("[smoke] cow_scatter host stages, one fp32 page (us): "
+          + json.dumps(host_stages(torch)))
     for case in attention_cases():
         for dtype in (torch.float32, torch.bfloat16):
             r = run_attention_case(torch, case, dtype)
@@ -594,6 +651,8 @@ def main() -> int:
             "library_ms": main_row["library_ms"],
             "device_ms": main_row["device_ms"],
             "library_device_ms": main_row.get("library_device_ms"),
+            "host_us": main_row.get("host_us"),
+            "library_host_us": main_row.get("library_host_us"),
             "case": main_row["case"], "dtype": main_row["dtype"]})
     print(json.dumps({"kernels": kernels}))
     print(card_line())

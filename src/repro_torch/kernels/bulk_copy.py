@@ -8,10 +8,11 @@ table of host ids or spans within the kernel's by-value capacity
 host-to-device copy, no synchronisation.  A larger host table is copied to
 the device first, and ids already on the device are read there, by the
 same kernel.  Each returns the route it took (``bulk-value`` or
-``bulk-device``), or None when the addresses or sizes are not 16-byte
-multiples and nothing was launched: the caller then takes ``copy_rows``
-(``csrc/paging.cu``).  Launches go on PyTorch's current stream and do not
-synchronise.
+``bulk-device``) and the ids as the kernel read them, or a route of None
+when the addresses or sizes are not 16-byte multiples and nothing was
+launched: the caller then takes ``copy_rows`` (``csrc/paging.cu``), with
+the device ids where they were uploaded already.  Launches go on
+PyTorch's current stream and do not synchronise.
 """
 from __future__ import annotations
 
@@ -54,21 +55,24 @@ def scatter_ids(dst: torch.Tensor, src: torch.Tensor, ids, row_bytes: int,
                 limit_bytes: int):
     """dst byte rows ``ids[i]`` <- src byte row ``i``, in place, stopping at
     dst byte ``limit_bytes``.  ``ids``: a contiguous int32 numpy array
-    (range-checked by the caller) or an int32 tensor on dst's device."""
+    (range-checked by the caller) or an int32 tensor on dst's device.
+    Returns (route, ids)."""
     fn = build.function("bulk_copy", "bulk_scatter_ids",
                         (_P, _P, _P, _P, _L, _L, _L, _P))
     if isinstance(ids, np.ndarray) and ids.size <= limits()["ids"]:
         host, dev, route = ids.ctypes.data, None, BULK_VALUE
     else:
         if isinstance(ids, np.ndarray):
+            if (dst.data_ptr() | src.data_ptr() | row_bytes) & 15:
+                return None, ids          # not bulk: copy_rows uploads once
             ids = torch.from_numpy(ids).to(dst.device)
         host, dev, route = None, ids.data_ptr(), BULK_DEVICE
     err = fn(dst.data_ptr(), src.data_ptr(), host, dev, len(ids), row_bytes,
              limit_bytes, build.stream(dst.device))
     if err == NOT_BULK:
-        return None
+        return None, ids
     build.check(err, "bulk_scatter_ids")
-    return route
+    return route, ids
 
 
 def copy_spans(dst: torch.Tensor, src: torch.Tensor, table: np.ndarray):
@@ -79,6 +83,10 @@ def copy_spans(dst: torch.Tensor, src: torch.Tensor, table: np.ndarray):
     n = table.shape[1]
     dev, route = None, BULK_VALUE
     if n > limits()["spans"]:
+        # the C entry point's alignment test, before anything is uploaded
+        if ((dst.data_ptr() | src.data_ptr()) & 15
+                or (table[:2] & 15).any() or (table[2, :-1] & 15).any()):
+            return None
         dev = torch.from_numpy(table).to(dst.device)
         route = BULK_DEVICE
     err = fn(dst.data_ptr(), src.data_ptr(), table.ctypes.data,
