@@ -51,6 +51,14 @@ def span_table(src_off, dst_off, nbytes) -> np.ndarray:
     return table
 
 
+def spans_aligned(table: np.ndarray, *ptrs: int) -> bool:
+    """The bulk path's alignment rule for a span table, as
+    ``bulk_copy_spans`` applies it: 16-byte base pointers and offsets, and
+    every span but the last a multiple of 16 bytes."""
+    return not (any(p & 15 for p in ptrs) or (table[:2] & 15).any()
+                or (table[2, :-1] & 15).any())
+
+
 def scatter_ids(dst: torch.Tensor, src: torch.Tensor, ids, row_bytes: int,
                 limit_bytes: int):
     """dst byte rows ``ids[i]`` <- src byte row ``i``, in place, stopping at
@@ -83,10 +91,8 @@ def copy_spans(dst: torch.Tensor, src: torch.Tensor, table: np.ndarray):
     n = table.shape[1]
     dev, route = None, BULK_VALUE
     if n > limits()["spans"]:
-        # the C entry point's alignment test, before anything is uploaded
-        if ((dst.data_ptr() | src.data_ptr()) & 15
-                or (table[:2] & 15).any() or (table[2, :-1] & 15).any()):
-            return None
+        if not spans_aligned(table, dst.data_ptr(), src.data_ptr()):
+            return None                # not bulk: upload nothing
         dev = torch.from_numpy(table).to(dst.device)
         route = BULK_DEVICE
     err = fn(dst.data_ptr(), src.data_ptr(), table.ctypes.data,

@@ -69,6 +69,21 @@ def test_run_spans_match_reference_gather(dtype, runs, trim):
     np.testing.assert_array_equal(table[2], np.cumsum(nbytes))
 
 
+@pytest.mark.parametrize("row, trim, base, want", [
+    (512, 0, 0, True),            # fp32 rows of 128
+    (512, 4, 0, True),            # only the last span is off 16
+    (2002, 0, 0, False),          # odd bf16 rows: offsets off 16
+    (512, 0, 8, False),           # a misaligned view
+])
+def test_spans_aligned_follows_the_bulk_rule(row, trim, base, want):
+    """The host-side copy of the kernel's alignment rule, which decides
+    before a large table is uploaded whether the bulk path takes it."""
+    starts, lens = (np.array(x, np.int64) for x in RUNS["skewed"])
+    limit = int(lens.sum()) * row - trim
+    table = bulk_copy.span_table(*run_spans(starts, lens, row, limit))
+    assert bulk_copy.spans_aligned(table, 0x10000 + base, 0x20000) is want
+
+
 def test_kernel_ids_stay_on_their_side():
     """Host ids stay a range-checked int32 numpy array (they travel in the
     launch); ids already in a tensor are not read back."""
