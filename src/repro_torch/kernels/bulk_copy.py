@@ -8,11 +8,10 @@ table of host ids or spans within the kernel's by-value capacity
 host-to-device copy, no synchronisation.  A larger host table is copied to
 the device first, and ids already on the device are read there, by the
 same kernel.  Each returns the route it took (``bulk-value`` or
-``bulk-device``) and the ids as the kernel read them, or a route of None
-when the addresses or sizes are not 16-byte multiples and nothing was
-launched: the caller then takes ``copy_rows`` (``csrc/paging.cu``), with
-the device ids where they were uploaded already.  Launches go on
-PyTorch's current stream and do not synchronise.
+``bulk-device``), or None when the addresses or sizes are not 16-byte
+multiples and nothing was launched or uploaded: the caller then takes
+``copy_rows`` (``csrc/paging.cu``).  Launches go on PyTorch's current
+stream and do not synchronise.
 """
 from __future__ import annotations
 
@@ -63,8 +62,7 @@ def scatter_ids(dst: torch.Tensor, src: torch.Tensor, ids, row_bytes: int,
                 limit_bytes: int):
     """dst byte rows ``ids[i]`` <- src byte row ``i``, in place, stopping at
     dst byte ``limit_bytes``.  ``ids``: a contiguous int32 numpy array
-    (range-checked by the caller) or an int32 tensor on dst's device.
-    Returns (route, ids)."""
+    (range-checked by the caller) or an int32 tensor on dst's device."""
     fn = build.function("bulk_copy", "bulk_scatter_ids",
                         (_P, _P, _P, _P, _L, _L, _L, _P))
     if isinstance(ids, np.ndarray) and ids.size <= limits()["ids"]:
@@ -72,15 +70,15 @@ def scatter_ids(dst: torch.Tensor, src: torch.Tensor, ids, row_bytes: int,
     else:
         if isinstance(ids, np.ndarray):
             if (dst.data_ptr() | src.data_ptr() | row_bytes) & 15:
-                return None, ids          # not bulk: copy_rows uploads once
+                return None                # not bulk: upload nothing
             ids = torch.from_numpy(ids).to(dst.device)
         host, dev, route = None, ids.data_ptr(), BULK_DEVICE
     err = fn(dst.data_ptr(), src.data_ptr(), host, dev, len(ids), row_bytes,
              limit_bytes, build.stream(dst.device))
     if err == NOT_BULK:
-        return None, ids
+        return None
     build.check(err, "bulk_scatter_ids")
-    return route, ids
+    return route
 
 
 def copy_spans(dst: torch.Tensor, src: torch.Tensor, table: np.ndarray):

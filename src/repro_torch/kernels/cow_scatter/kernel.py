@@ -52,7 +52,7 @@ def cow_scatter(dst: torch.Tensor, ids, pages: torch.Tensor,
         _check_args(dst, pages, row_elems)
     isz = dst.element_size()
     row, limit = row_elems * isz, dst.numel() * isz
-    route, ids = bulk_copy.scatter_ids(dst, pages, ids, row, limit)
+    route = bulk_copy.scatter_ids(dst, pages, ids, row, limit)
     if route is None:
         if isinstance(ids, np.ndarray):
             ids = torch.from_numpy(ids).to(dst.device)
