@@ -15,21 +15,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
    each copy case must take the route it is built for (the bulk-copy
    kernel with its table in the launch or in device memory, or
    ``copy_rows``): index tables of exactly the by-value capacity and one
-   more, odd row sizes, a misaligned payload, ``scatter_patch`` onto a
-   partial last page, and attention over empty ranges; time kernel, plain
-   version and library call with CUDA events (the kernel from host ids
-   through its wrapper, the library call with ids already on the card),
-   the device time alone (CUDA-graph replay) and the host time of one
-   call, and split one page's ``cow_scatter`` call into its host stages;
+   more, ids already on the card, odd row sizes, a misaligned payload or
+   output, ``scatter_patch`` onto a partial last page; each attention case
+   its route (``tma``, or ``loads`` for rows off 16 bytes) and the number
+   of splits its plan gives, including a long sequence and empty ranges
+   split across blocks; time kernel, plain version and library call with
+   CUDA events (the kernel from host ids through its wrapper, the library
+   call with ids already on the card), the device time alone (CUDA-graph
+   replay) and the host time of one call; split one page's
+   ``cow_scatter`` call into its host stages, and one long sequence's
+   attention into the device time of its two kernels;
 4. run the port's serve path (``repro_torch.launch.serve.main``) for
    gemma3-1b at full width: 3 nodes, a seed packed on node0, two children
    forked over the modelled RDMA network, 4 requests and the
    copy-on-write fork demo.  Every kernel's launch count must be > 0,
-   cow_scatter and page_gather_runs must have gone through the bulk-copy
-   kernel, every child's parameters must equal the seed's, and every
-   request's paged-engine logits must be close to the non-paged model's
-   on the same card; the pages each kernel moved and the route counts are
-   printed;
+   page_gather, page_gather_runs and cow_scatter must have gone through
+   the bulk-copy kernel, every child's parameters must equal the seed's,
+   and every request's paged-engine logits must be close to the non-paged
+   model's on the same card; the pages each kernel moved and the route
+   counts are printed;
 5. print one JSON line with every kernel's numbers, the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -63,13 +67,12 @@ REPLACES = {
     "cow_scatter_runs": "src/repro/kernels/cow_scatter/kernel.py:107",
     "paged_attention": "src/repro/kernels/paged_attention/kernel.py:101",
 }
-SOURCE = {k: "src/repro_torch/kernels/csrc/paging.cu" for k in KERNELS}
+SOURCE = {k: "src/repro_torch/kernels/csrc/bulk_copy.cu" for k in KERNELS}
 SOURCE["paged_attention"] = "src/repro_torch/kernels/csrc/paged_attention.cu"
-SOURCE["cow_scatter"] = SOURCE["page_gather_runs"] = \
-    "src/repro_torch/kernels/csrc/bulk_copy.cu"
-DESIGN = {"page_gather": "copy_rows", "page_gather_runs": "bulk-tma",
+SOURCE["cow_scatter_runs"] = "src/repro_torch/kernels/csrc/paging.cu"
+DESIGN = {"page_gather": "bulk-tma", "page_gather_runs": "bulk-tma",
           "cow_scatter": "bulk-tma", "cow_scatter_runs": "copy_rows",
-          "paged_attention": "block-per-head"}
+          "paged_attention": "split-tma"}
 BULK = ("bulk-value", "bulk-device")
 
 
@@ -155,13 +158,29 @@ def copy_cases(limits):
         return (np.cumsum(lens + 1) - lens - 1, lens)
     return [
         case("page_gather", "embed-assemble", "float32", n_emb + 64, E,
-             np.arange(64, 64 + n_emb), "copy_rows"),
+             np.arange(64, 64 + n_emb), "bulk-device"),
+        case("page_gather", "embed-ids-on-device", "float32", n_emb + 64, E,
+             np.arange(64, 64 + n_emb), "bulk-device", device_ids=True),
         case("page_gather", "scattered-dup", "bfloat16", 4096, E,
-             rng.integers(0, 4096, 3000), "copy_rows"),
+             rng.integers(0, 4096, 3000), "bulk-value"),
         case("page_gather", "single-page", "float32", 64, E, np.array([7]),
-             "copy_rows"),
+             "bulk-value"),
+        case("page_gather", "ids-at-capacity", "bfloat16", cap_ids + 64,
+             4096, rng.integers(0, cap_ids + 64, cap_ids), "bulk-value"),
+        case("page_gather", "ids-past-capacity", "bfloat16", cap_ids + 64,
+             4096, rng.integers(0, cap_ids + 64, cap_ids + 1),
+             "bulk-device"),
+        case("page_gather", "odd-row", "bfloat16", 256, 1001,
+             rng.integers(0, 256, 100), "copy_rows"),
+        case("page_gather", "misaligned-out", "float32", 64, 4096,
+             np.array([3, 9, 10, 3]), "copy_rows", misaligned=True),
         case("page_gather_runs", "embed-read", "float32", n_emb + 64, E,
              ([64], [n_emb]), "bulk-value"),
+        # page_gather's embed-assemble ids, cut into runs on the host: the
+        # alternative to uploading ids past the by-value capacity
+        case("page_gather_runs", "embed-assemble-ids-cut-into-runs",
+             "float32", n_emb + 64, E, np.arange(64, 64 + n_emb),
+             "bulk-value", cut_ids=True),
         case("page_gather_runs", "skewed-runs", "bfloat16", 8192, E,
              ([0, 3000, 5000, 7000], [2500, 1, 1999, 900]), "bulk-value"),
         case("page_gather_runs", "spans-at-capacity", "bfloat16",
@@ -205,16 +224,20 @@ def routes_of(dispatch, call):
 def run_copy_case(torch, case):
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.cow_scatter import ops as cs
-    from repro_torch.kernels.page_gather import ops as pg
-    from repro_torch.kernels.page_gather.ref import expand_runs
+    from repro_torch.kernels.page_gather import kernel as pgk, ops as pg
+    from repro_torch.kernels.page_gather.ref import (expand_runs,
+                                                     page_gather_ref)
+    from repro_torch.memory.pool import frame_runs
     name, label, F, E, spec = (case[k] for k in
                                ("name", "label", "F", "E", "spec"))
     dtype = getattr(torch, case["dtype"])
     dev = torch.device("cuda")
     frames = torch.randn(F, E, device=dev).to(dtype)
     runs = name.endswith("_runs")
+    cut = case.get("cut_ids")        # an id list, cut into runs per call
     # host ids as the pool passes them (int32 numpy)
-    ids = expand_runs(*spec) if runs else np.asarray(spec, np.int32)
+    ids = (expand_runs(*spec) if runs and not cut
+           else np.asarray(spec, np.int32))
     n = int(ids.size)
     ids_dev = torch.from_numpy(ids.astype(np.int64)).to(dev)
     pages = torch.randn(n * E + 1, device=dev).to(dtype)
@@ -223,9 +246,22 @@ def run_copy_case(torch, case):
     if case.get("device_ids"):
         ids = ids_dev.to(torch.int32)
     if name.startswith("page_gather"):
-        if runs:
+        if cut:
+            def call(backend):
+                return pg.page_gather_runs(frames, *frame_runs(ids),
+                                           backend=backend)
+        elif runs:
             def call(backend):
                 return pg.page_gather_runs(frames, *spec, backend=backend)
+        elif case.get("misaligned"):
+            # into a view of an output buffer one element off 16 bytes
+            buf = torch.empty(n * E + 1, dtype=dtype, device=dev)
+
+            def call(backend):
+                if backend == "torch":
+                    return page_gather_ref(frames, ids)
+                return pgk.page_gather(frames, ids,
+                                       out=buf[1:].view(n, E))
         else:
             def call(backend):
                 return pg.page_gather(frames, ids, backend=backend)
@@ -278,15 +314,27 @@ def run_copy_case(torch, case):
     nbytes = 2 * n * E * frames.element_size()
     reps = 10 if nbytes > (256 << 20) else 20
     # device-only times where the call uploads nothing (a graph cannot
-    # capture a copy from pageable host memory)
-    capturable = route[0] == "bulk-value" or case.get("device_ids")
+    # capture a copy from pageable host memory); the run-table scatter's
+    # wrapper uploads its tables, so its kernel is timed from tables
+    # uploaded beforehand
+    if name == "cow_scatter_runs":
+        from repro_torch.kernels.cow_scatter import kernel as csk
+        from repro_torch.kernels.page_gather.plan import run_offsets
+        tables = run_offsets(*(np.asarray(x, np.int64) for x in spec), dev)
+
+        def kern_alone():
+            return csk.cow_scatter_runs(kernel_target, *tables, pages, E)
+    elif route[0] == "bulk-value" or case.get("device_ids"):
+        kern_alone = kern
+    else:
+        kern_alone = None
     return {"name": name, "case": label, "dtype": case["dtype"],
             "design": "bulk-tma" if route[0] in BULK else "copy_rows",
             "route": route[0], "pages": n, "page_elems": E,
             "max_abs_err": 0.0, "ms": time_ms(torch, kern),
             "plain_ms": time_ms(torch, plain),
             "library_ms": time_ms(torch, library),
-            "device_ms": (device_ms(torch, kern, reps) if capturable
+            "device_ms": (device_ms(torch, kern_alone, reps) if kern_alone
                           else None),
             "library_device_ms": device_ms(torch, library, reps),
             "host_us": host_us(torch, kern),
@@ -377,28 +425,37 @@ def run_patch_case(torch, case):
 
 
 def attention_cases():
-    """(label, B, K, G, hd, Tp, length per seq, window or explicit starts)
-    — the first is the main path's decode at gemma3-1b's head shape (4
-    fork-demo sequences of about 8 tokens); then a long window batch, and
-    empty ranges (starts == lengths, and a zero length), where the output
-    is the mean of V over every slot of the sequence's table."""
+    """(label, B, K, G, hd, Tp, length per seq, window or explicit starts,
+    page-table columns or None for the lengths' pages and one padded
+    column) — the first is the main path's decode at gemma3-1b's head shape
+    (4 fork-demo sequences of about 8 tokens in a one-column table, one
+    split); then a long
+    window batch and one long sequence with no window (split across the
+    SMs), other head shapes (rows of 99 elements take the plain-load
+    route), and empty ranges (starts == lengths, and a
+    zero length) over a wide table, split too, where the output is the
+    mean of V over every slot of the sequence's table."""
     return [
-        ("gemma-decode", 4, 1, 4, 256, 16, [8, 9, 9, 9], 512),
+        ("gemma-decode", 4, 1, 4, 256, 16, [8, 9, 9, 9], 512, 1),
         ("gemma-long-window", 8, 1, 4, 256, 16,
-         [2048, 2000, 1999, 1500, 2048, 700, 1024, 2047], 512),
-        ("qwen2-heads", 3, 4, 7, 128, 16, [40, 77, 5], None),
-        ("mha-global", 2, 2, 1, 64, 16, [100, 33], None),
-        ("empty-ranges", 4, 1, 4, 256, 16, [8, 0, 9, 32], [8, 0, 0, 32]),
+         [2048, 2000, 1999, 1500, 2048, 700, 1024, 2047], 512, None),
+        ("gemma-global-long", 1, 1, 4, 256, 16, [8192], None, None),
+        ("qwen2-heads", 3, 4, 7, 128, 16, [40, 77, 5], None, None),
+        ("mha-global", 2, 2, 1, 64, 16, [100, 33], None, None),
+        ("odd-head-dim", 2, 2, 3, 99, 8, [50, 17], None, None),
+        ("empty-ranges", 4, 1, 4, 256, 16, [8, 0, 9, 32], [8, 0, 0, 32],
+         64),
     ]
 
 
 def run_attention_case(torch, case, dtype):
-    from repro_torch.kernels.paged_attention import ops as pa
-    label, B, K, G, hd, Tp, lens, window = case
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.paged_attention import kernel, ops as pa, plan
+    label, B, K, G, hd, Tp, lens, window, P = case
     explicit = window if isinstance(window, list) else None
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
-    P = max(-(-l // Tp) for l in lens) + 1           # one padded column
+    P = P or max(-(-l // Tp) for l in lens) + 1      # one padded column
     F = B * P + 8
     q = torch.randn(B, K, G, hd, device=dev).to(dtype)
     pool = torch.randn(F, Tp, K, hd, device=dev).to(dtype)
@@ -420,13 +477,22 @@ def run_attention_case(torch, case, dtype):
     def call(backend):
         return pa.paged_attention(q, pool, pool, kt, lengths, v_page_table=vt,
                                   starts=starts, backend=backend)
-    got, want = call("kernel"), call("torch")
+    got = []
+    route = routes_of(dispatch, lambda: got.append(call("kernel")))
+    want = call("torch")
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
+    err = float((got[0].float() - want.float()).abs().max())
     tol = ATTN_TOL[str(dtype)[6:]]
     if not err < tol:
         raise AssertionError(f"paged_attention/{label}/{dtype}: max abs "
                              f"err {err} >= {tol}")
+    want_route = "loads" if hd * q.element_size() % 16 else "tma"
+    if route != [want_route]:
+        raise AssertionError(f"paged_attention/{label}: took {route}, "
+                             f"expected {want_route}")
+    splits, _ = plan.split_plan(B, K, P, kernel.sm_count(dev))
+    if (label == "gemma-decode") != (splits == 1):
+        raise AssertionError(f"paged_attention/{label}: {splits} splits")
     ms = time_ms(torch, lambda: call("kernel"))
     plain_ms = time_ms(torch, lambda: call("torch"))
     dev_ms = device_ms(torch, lambda: call("kernel"), 20)
@@ -441,12 +507,48 @@ def run_attention_case(torch, case, dtype):
     bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
     return {"name": "paged_attention", "case": label,
             "dtype": str(dtype)[6:], "B": B, "K": K, "G": G, "hd": hd,
-            "tokens": tokens, "max_abs_err": err, "tol": tol, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None, "device_ms": dev_ms,
+            "P": P, "splits": splits, "route": route[0], "design":
+            DESIGN["paged_attention"], "tokens": tokens, "max_abs_err": err,
+            "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "device_ms": dev_ms,
+            "host_us": host_us(torch, lambda: call("kernel")),
             "bound_ms": bound_s * 1e3,
             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                          >= flops / FP32_FLOPS_PER_S else "operations"),
             "bytes": nbytes, "flops": flops}
+
+
+def attention_kernel_split(torch, reps: int = 20) -> dict:
+    """Device microseconds per call of each of paged_attention's two
+    kernels (the split kernel and the combine), from ``torch.profiler``,
+    on one fp32 sequence of 8,192 tokens at gemma3-1b's head shape."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.launch.profile_serve import _device_us
+    dev = torch.device("cuda")
+    Tp, hd, tokens = 16, 256, 8192
+    P = tokens // Tp + 1
+    q = torch.randn(1, 1, 4, hd, device=dev)
+    pool = torch.randn(P + 8, Tp, 1, hd, device=dev)
+    kt = torch.randperm(P + 8, device=dev)[:P].to(torch.int32)[None]
+    lengths = torch.tensor([tokens], dtype=torch.int32, device=dev)
+
+    def call():
+        return pa.paged_attention(q, pool, pool, kt, lengths)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        for k in ("paged_attention_kernel", "paged_attention_combine"):
+            if k in e.key:
+                split[k] = split.get(k, 0.0) + _device_us(e) / reps
+    if len(split) != 2:
+        raise AssertionError(f"profiler saw {split}, not both kernels")
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -534,7 +636,7 @@ def main_path(torch):
     if missing:
         raise AssertionError(f"main path never launched {missing}: "
                              f"{launches}")
-    for k in ("cow_scatter", "page_gather_runs"):
+    for k in ("page_gather", "cow_scatter", "page_gather_runs"):
         if not any(routes.get(f"{k}.{r}", 0) for r in BULK):
             raise AssertionError(f"main path never took {k}'s bulk-copy "
                                  f"kernel: {routes}")
@@ -631,6 +733,9 @@ def main() -> int:
             r = run_attention_case(torch, case, dtype)
             print("[smoke] kernel " + json.dumps(r))
             rows.append(r)
+    print("[smoke] paged_attention device us per call, by kernel, one "
+          "fp32 sequence of 8,192 tokens (torch.profiler): "
+          + json.dumps(attention_kernel_split(torch)))
     torch.cuda.synchronize()
 
     launches, pages, routes = main_path(torch)

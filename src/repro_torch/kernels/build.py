@@ -6,10 +6,11 @@ shared library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-The output name carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one is reused.  The build runs at the
-first kernel launch (never at import: machines without nvcc import this
-package) and a failed build raises.  ``REPRO_TORCH_BUILD_DIR`` overrides
+The output name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused.  The build runs at the first kernel launch
+(never at import: machines without nvcc import this package) and a failed
+build raises.  ``REPRO_TORCH_BUILD_DIR`` overrides
 the output directory, which defaults to ``build/kernels`` at the root of
 the checkout.
 """
@@ -55,6 +56,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{h}.so"
 

@@ -1,17 +1,18 @@
 """ctypes launchers of ``csrc/bulk_copy.cu``: page copies planned in bytes
 and moved with the Tensor Memory Accelerator's bulk copies.
 
-``scatter_ids`` serves cow_scatter and scatter_patch; ``copy_spans`` the
-run-table gather, from the plan of ``page_gather/plan.py:run_spans``.  A
-table of host ids or spans within the kernel's by-value capacity
-(:func:`limits`) travels inside the launch: no allocation, no
-host-to-device copy, no synchronisation.  A larger host table is copied to
-the device first, and ids already on the device are read there, by the
-same kernel.  Each returns the route it took (``bulk-value`` or
-``bulk-device``), or None when the addresses or sizes are not 16-byte
-multiples and nothing was launched or uploaded: the caller then takes
-``copy_rows`` (``csrc/paging.cu``).  Launches go on PyTorch's current
-stream and do not synchronise.
+``scatter_ids`` serves cow_scatter and scatter_patch; ``gather_ids``
+page_gather and gather_assemble; ``copy_spans`` the run-table gather, from
+the plan of ``page_gather/plan.py:run_spans``.  A table of host ids or
+spans within the kernel's by-value capacity (:func:`limits`) travels
+inside the launch: no allocation, no host-to-device copy, no
+synchronisation.  A larger host table is copied to the device first, and
+ids already on the device are read there, by the same kernel.  Each
+returns the route it took (``bulk-value`` or ``bulk-device``), or None
+when the addresses or sizes are not 16-byte multiples and nothing was
+launched or uploaded: the caller then takes ``copy_rows``
+(``csrc/paging.cu``).  Launches go on PyTorch's current stream and do not
+synchronise.
 """
 from __future__ import annotations
 
@@ -58,27 +59,55 @@ def spans_aligned(table: np.ndarray, *ptrs: int) -> bool:
                 or (table[2, :-1] & 15).any())
 
 
+def ids_route(ids, row_bytes: int, capacity: int, *ptrs: int):
+    """The route a row-id copy takes, decided on the host before anything
+    is uploaded: ``bulk-value`` for host ids within the by-value
+    ``capacity``, ``bulk-device`` for larger host ids and for ids already
+    on the device, None where the bulk path cannot take the rows (base
+    pointers or rows off 16 bytes; the kernel applies the same rule)."""
+    if row_bytes & 15 or any(p & 15 for p in ptrs):
+        return None
+    if isinstance(ids, np.ndarray) and ids.size <= capacity:
+        return BULK_VALUE
+    return BULK_DEVICE
+
+
+def _ids_copy(entry: str, dst: torch.Tensor, src: torch.Tensor, ids,
+              row_bytes: int, limit_bytes: int):
+    route = ids_route(ids, row_bytes, limits()["ids"], dst.data_ptr(),
+                      src.data_ptr())
+    if route is None:
+        return None                    # not bulk: upload nothing
+    fn = build.function("bulk_copy", entry, (_P, _P, _P, _P, _L, _L, _L, _P))
+    host = dev = None
+    if route == BULK_VALUE:
+        host = ids.ctypes.data
+    else:
+        if isinstance(ids, np.ndarray):
+            ids = torch.from_numpy(ids).to(dst.device)
+        dev = ids.data_ptr()
+    err = fn(dst.data_ptr(), src.data_ptr(), host, dev, len(ids), row_bytes,
+             limit_bytes, build.stream(dst.device))
+    build.check(err, entry)
+    return route
+
+
 def scatter_ids(dst: torch.Tensor, src: torch.Tensor, ids, row_bytes: int,
                 limit_bytes: int):
     """dst byte rows ``ids[i]`` <- src byte row ``i``, in place, stopping at
     dst byte ``limit_bytes``.  ``ids``: a contiguous int32 numpy array
     (range-checked by the caller) or an int32 tensor on dst's device."""
-    fn = build.function("bulk_copy", "bulk_scatter_ids",
-                        (_P, _P, _P, _P, _L, _L, _L, _P))
-    if isinstance(ids, np.ndarray) and ids.size <= limits()["ids"]:
-        host, dev, route = ids.ctypes.data, None, BULK_VALUE
-    else:
-        if isinstance(ids, np.ndarray):
-            if (dst.data_ptr() | src.data_ptr() | row_bytes) & 15:
-                return None                # not bulk: upload nothing
-            ids = torch.from_numpy(ids).to(dst.device)
-        host, dev, route = None, ids.data_ptr(), BULK_DEVICE
-    err = fn(dst.data_ptr(), src.data_ptr(), host, dev, len(ids), row_bytes,
-             limit_bytes, build.stream(dst.device))
-    if err == NOT_BULK:
-        return None
-    build.check(err, "bulk_scatter_ids")
-    return route
+    return _ids_copy("bulk_scatter_ids", dst, src, ids, row_bytes,
+                     limit_bytes)
+
+
+def gather_ids(dst: torch.Tensor, src: torch.Tensor, ids, row_bytes: int,
+               limit_bytes: int):
+    """dst byte row ``i`` <- src byte row ``ids[i]``, writing dst bytes
+    ``[0, min(len(ids) * row_bytes, limit_bytes))``; ids may repeat.
+    ``ids`` as for :func:`scatter_ids`."""
+    return _ids_copy("bulk_gather_ids", dst, src, ids, row_bytes,
+                     limit_bytes)
 
 
 def copy_spans(dst: torch.Tensor, src: torch.Tensor, table: np.ndarray):

@@ -1,10 +1,10 @@
-// Bulk page copies for Hopper: cow_scatter (and scatter_patch, which uses
-// the same entry) and page_gather_runs.
+// Bulk page copies for Hopper: page_gather (and gather_assemble, which
+// uses the same entry), page_gather_runs, and cow_scatter (and
+// scatter_patch).
 //
-// Replaces the Pallas TPU kernels cow_scatter
-// (src/repro/kernels/cow_scatter/kernel.py::cow_scatter) and
-// page_gather_runs (src/repro/kernels/page_gather/kernel.py::
-// page_gather_runs).
+// Replaces the Pallas TPU kernels page_gather and page_gather_runs
+// (src/repro/kernels/page_gather/kernel.py::page_gather, ::page_gather_runs)
+// and cow_scatter (src/repro/kernels/cow_scatter/kernel.py::cow_scatter).
 //
 // What bounds it: bytes (each page read once and written once over the
 // card's 3.35 TB/s; there is no arithmetic) and, for the small copies of
@@ -30,15 +30,19 @@
 //     finds its first span by one binary search over the spans' cumulative
 //     ends (ids: one division), not one search per page;
 //   * the bytes of a span past its last multiple of 16 (the partial last
-//     page of a scatter_patch destination) are written by the issuing
-//     thread itself.
+//     page of a scatter_patch or gather_assemble destination) are written
+//     by the issuing thread itself.
+// The PTX of the copies and barriers is in tma.cuh.
 // Bulk copies need 16-byte aligned addresses and sizes.  Where the base
 // pointers or the spans are not (odd row sizes, misaligned views) the entry
 // points return kNotBulk and launch nothing; the caller then takes
-// copy_rows (paging.cu).  Scatter destinations must be unique, as there.
+// copy_rows (paging.cu).  Scatter destinations must be unique, as there;
+// gather ids may repeat.
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -62,52 +66,6 @@ constexpr int kBlocksPerSm = 2;
 constexpr int kThreads = 32;         // lane 0 issues every copy
 constexpr int kSmemBytes = kStages * kChunk + kStages * 8;
 constexpr int kNotBulk = -1;
-
-// ---- PTX: mbarriers and 1-D bulk copies (sm_90) ---------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t smem, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t smem,
-                                           uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::
-                   "l"(dst),
-               "r"(smem), "r"(bytes)
-               : "memory");
-}
 
 // ---- plans: which bytes go where -------------------------------------------
 // A plan lays its spans end to end in a "plan space" of total() bytes.
@@ -138,7 +96,9 @@ struct ScatterIds {
   int64_t n, row, limit;
   Ids ids;
 
-  __device__ __forceinline__ int64_t total() const { return n * row; }
+  __host__ __device__ __forceinline__ int64_t total() const {
+    return n * row;
+  }
   __device__ __forceinline__ int64_t first(int64_t cs) const {
     return cs / row;
   }
@@ -155,6 +115,39 @@ struct ScatterIds {
       int64_t e = (ce < b0 + row ? ce : b0 + row) - b0;
       if (e > nb) e = nb;
       if (lo < e) f(src + b0, dst + d, lo, e, nb & ~int64_t(15), b0 + lo - cs);
+    }
+  }
+};
+
+// dst row i <- src row ids[i], rows of `row` bytes; destination bytes at
+// or past `limit` are not written (a partial last page is written in the
+// same pass).  Plan space: the destination bytes [0, min(n * row, limit)).
+// Ids may repeat: they pick rows to read.
+template <class Ids>
+struct GatherIds {
+  const char* src;
+  char* dst;
+  int64_t n, row, limit;
+  Ids ids;
+
+  __host__ __device__ __forceinline__ int64_t total() const {
+    return n * row < limit ? n * row : limit;
+  }
+  __device__ __forceinline__ int64_t first(int64_t cs) const {
+    return cs / row;
+  }
+
+  template <class F>
+  __device__ __forceinline__ void walk(int64_t i, int64_t cs, int64_t ce,
+                                       F&& f) const {
+    for (; i < n && i * row < ce; ++i) {
+      const int64_t b0 = i * row;
+      const int64_t nb = limit - b0 < row ? limit - b0 : row;
+      const int64_t lo = (cs > b0 ? cs : b0) - b0;
+      const int64_t e = (ce < b0 + nb ? ce : b0 + nb) - b0;
+      if (lo < e)
+        f(src + (int64_t)ids.at(i) * row, dst + b0, lo, e,
+          nb & ~int64_t(15), b0 + lo - cs);
     }
   }
 };
@@ -222,8 +215,8 @@ bulk_copy(const __grid_constant__ Plan p) {
   if (threadIdx.x != 0) return;
   const uint32_t buf = (uint32_t)__cvta_generic_to_shared(smem);
   const uint32_t bars = buf + kStages * kChunk;
-  for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  for (int s = 0; s < kStages; ++s) tma::mbar_init(bars + 8 * s, 1);
+  tma::mbar_fence_init();
 
   const int64_t total = p.total();
   const int64_t nch = (total + kChunk - 1) / kChunk;
@@ -246,12 +239,12 @@ bulk_copy(const __grid_constant__ Plan p) {
       const int64_t be = e < body ? e : body;
       if (lo < be) tx += (uint32_t)(be - lo);
     });
-    mbar_arrive_expect_tx(bar, tx);
+    tma::mbar_arrive_expect_tx(bar, tx);
     p.walk(i0, cs, ce, [&](const char* s, char* d, int64_t lo, int64_t e,
                            int64_t body, int64_t off) {
       const int64_t be = e < body ? e : body;
-      if (lo < be) bulk_load(stage + (uint32_t)off, s + lo, (uint32_t)(be - lo),
-                             bar);
+      if (lo < be)
+        tma::bulk_load(stage + (uint32_t)off, s + lo, (uint32_t)(be - lo), bar);
       for (int64_t j = lo > body ? lo : body; j < e; ++j) d[j] = s[j];
     });
   };
@@ -261,23 +254,25 @@ bulk_copy(const __grid_constant__ Plan p) {
     int64_t cs, ce;
     chunk(k, cs, ce);
     const uint32_t stage = buf + (uint32_t)(k % kStages) * kChunk;
-    mbar_wait(bars + 8 * (uint32_t)(k % kStages), (uint32_t)(k / kStages) & 1);
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    tma::mbar_wait(bars + 8 * (uint32_t)(k % kStages),
+                   (uint32_t)(k / kStages) & 1);
+    tma::fence_proxy_async();
     p.walk(first[k % kStages], cs, ce,
            [&](const char*, char* d, int64_t lo, int64_t e, int64_t body,
                int64_t off) {
       const int64_t be = e < body ? e : body;
-      if (lo < be) bulk_store(d + lo, stage + (uint32_t)off, (uint32_t)(be - lo));
+      if (lo < be)
+        tma::bulk_store(d + lo, stage + (uint32_t)off, (uint32_t)(be - lo));
     });
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    tma::bulk_commit();
     // refill the stage chunk k - 1 was stored from, once that store has
     // finished reading it (chunk k's store may still be in flight)
     if (k >= 1 && k - 1 + kStages < nk) {
-      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      tma::bulk_wait_read<1>();
       load(k - 1 + kStages);
     }
   }
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  tma::bulk_wait_all();
 }
 
 int sm_count() {
@@ -311,17 +306,25 @@ int launch(const Plan& p, int64_t total, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int N>
-int scatter_by_value(void* dst, const void* src, const int* ids, int64_t n,
-                     int64_t row, int64_t limit, cudaStream_t s) {
-  ScatterIds<IdsValue<N>> p;
+// A row-id plan (ScatterIds or GatherIds) over `Ids`, its fields set.
+template <template <class> class Plan, class Ids>
+Plan<Ids> ids_plan(void* dst, const void* src, int64_t n, int64_t row,
+                   int64_t limit) {
+  Plan<Ids> p;
   p.src = static_cast<const char*>(src);
   p.dst = static_cast<char*>(dst);
   p.n = n;
   p.row = row;
   p.limit = limit;
+  return p;
+}
+
+template <template <class> class Plan, int N>
+int ids_by_value(void* dst, const void* src, const int* ids, int64_t n,
+                 int64_t row, int64_t limit, cudaStream_t s) {
+  auto p = ids_plan<Plan, IdsValue<N>>(dst, src, n, row, limit);
   memcpy(p.ids.id, ids, (size_t)n * sizeof(int));
-  return launch(p, n * row, s);
+  return launch(p, p.total(), s);
 }
 
 template <int N>
@@ -339,6 +342,29 @@ int spans_by_value(void* dst, const void* src, const int64_t* t, int n,
 
 bool aligned(const void* a, const void* b) {
   return (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
+}
+
+// The entry of a row-id plan: host ids of up to kIdsMax travel in the
+// launch (three size classes), others are read from ids_dev.
+template <template <class> class Plan>
+int ids_entry(void* dst, const void* src, const int* ids_host,
+              const int* ids_dev, int64_t n, int64_t row, int64_t limit,
+              void* stream) {
+  if (n <= 0 || row <= 0 || limit <= 0) return 0;
+  if (!aligned(dst, src) || (row & 15)) return kNotBulk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ids_host != nullptr && n <= kIdsMax) {
+    if (n <= kSmall)
+      return ids_by_value<Plan, kSmall>(dst, src, ids_host, n, row, limit, s);
+    if (n <= kIdsMid)
+      return ids_by_value<Plan, kIdsMid>(dst, src, ids_host, n, row, limit,
+                                         s);
+    return ids_by_value<Plan, kIdsMax>(dst, src, ids_host, n, row, limit, s);
+  }
+  if (ids_dev == nullptr) return (int)cudaErrorInvalidValue;
+  auto p = ids_plan<Plan, IdsDevice>(dst, src, n, row, limit);
+  p.ids.id = ids_dev;
+  return launch(p, p.total(), s);
 }
 
 }  // namespace
@@ -361,28 +387,18 @@ int bulk_copy_limits(int* ids_max, int* spans_max, int* param_bytes) {
 int bulk_scatter_ids(void* dst, const void* src, const int* ids_host,
                      const int* ids_dev, int64_t n, int64_t row_bytes,
                      int64_t limit_bytes, void* stream) {
-  if (n <= 0 || row_bytes <= 0) return 0;
-  if (!aligned(dst, src) || (row_bytes & 15)) return kNotBulk;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ids_host != nullptr && n <= kIdsMax) {
-    if (n <= kSmall)
-      return scatter_by_value<kSmall>(dst, src, ids_host, n, row_bytes,
-                                      limit_bytes, s);
-    if (n <= kIdsMid)
-      return scatter_by_value<kIdsMid>(dst, src, ids_host, n, row_bytes,
-                                       limit_bytes, s);
-    return scatter_by_value<kIdsMax>(dst, src, ids_host, n, row_bytes,
-                                     limit_bytes, s);
-  }
-  if (ids_dev == nullptr) return (int)cudaErrorInvalidValue;
-  ScatterIds<IdsDevice> p;
-  p.src = static_cast<const char*>(src);
-  p.dst = static_cast<char*>(dst);
-  p.n = n;
-  p.row = row_bytes;
-  p.limit = limit_bytes;
-  p.ids.id = ids_dev;
-  return launch(p, n * row_bytes, s);
+  return ids_entry<ScatterIds>(dst, src, ids_host, ids_dev, n, row_bytes,
+                               limit_bytes, stream);
+}
+
+// dst row i <- src row ids[i] (rows of row_bytes), writing dst bytes
+// [0, min(n * row_bytes, limit_bytes)).  Ids, routes and alignment as for
+// bulk_scatter_ids; ids may repeat.
+int bulk_gather_ids(void* dst, const void* src, const int* ids_host,
+                    const int* ids_dev, int64_t n, int64_t row_bytes,
+                    int64_t limit_bytes, void* stream) {
+  return ids_entry<GatherIds>(dst, src, ids_host, ids_dev, n, row_bytes,
+                              limit_bytes, stream);
 }
 
 // dst[dst_off[i] + j] <- src[src_off[i] + j] for j < nbytes[i].  `spans`

@@ -15,11 +15,11 @@ The chosen implementation is counted as ``kernel.{name}.{cuda|torch}`` in
 a module meter that pools drain into ``Network.meter``
 (:func:`drain_meters_into`), as in the reference package.  Separately,
 each kernel wrapper adds one to :data:`launches` where it launches its
-kernel, the pages that launch moved to :data:`pages_moved`, and, for the
-copy kernels, one to :data:`routes` under ``{entry}.{route}`` (which of the
-kernel layer's paths took the call: ``bulk-value``, ``bulk-device`` or
-``copy_rows``).  These counts are never drained, so a run can show which
-kernels and paths the main path went through.
+kernel, the pages that launch moved to :data:`pages_moved`, and one to
+:data:`routes` under ``{entry}.{route}``: which of the kernel layer's paths
+took the call (copies: ``bulk-value``, ``bulk-device`` or ``copy_rows``;
+paged_attention: ``tma`` or ``loads``).  These counts are never drained,
+so a run can show which kernels and paths the main path went through.
 """
 from __future__ import annotations
 

@@ -4,11 +4,16 @@
 ``page_gather_runs`` copies frame ``starts[i] + j`` to row ``offs[i] + j``.
 Both write into a destination tensor the caller may provide, stopping at
 its last element, so an assembled tensor whose last page is partial is
-filled in the same pass.  ``page_gather`` runs ``copy_rows``
-(``csrc/paging.cu``); ``page_gather_runs`` runs the bulk-copy kernel
-(``csrc/bulk_copy.cu``) over the byte plan of ``plan.run_spans``, or
-``copy_rows`` where rows or addresses are not 16-byte multiples.  The
-launch goes on PyTorch's current stream and does not synchronise.
+filled in the same pass.  Both run the bulk-copy kernel
+(``csrc/bulk_copy.cu``).  ``page_gather`` takes its host ids in the launch
+up to the by-value capacity, uploads more, and reads ids already on the
+device where they are (cutting a long id list into runs, so that an
+embedding's 9,216 consecutive pages travel as one span, cost more host
+time on an H100 than the upload it saves; ``PERF.md``).
+``page_gather_runs`` copies the byte plan of ``plan.run_spans``.  Where
+rows or addresses are not 16-byte multiples both take ``copy_rows``
+(``csrc/paging.cu``).  Each launch is counted with its route.  The launch
+goes on PyTorch's current stream and does not synchronise.
 """
 from __future__ import annotations
 
@@ -38,23 +43,34 @@ def _check_args(frames: torch.Tensor, out: torch.Tensor, *tables) -> None:
                              "frames' device")
 
 
-def page_gather(frames: torch.Tensor, ids: torch.Tensor,
-                out: torch.Tensor = None) -> torch.Tensor:
-    """frames (F, E); ids (n,) int32 on the same device -> ``out`` (by
-    default a new (n, E) tensor), rows past ``out``'s end dropped."""
-    n, E = int(ids.numel()), frames.shape[1]
+def page_gather(frames: torch.Tensor, ids, out: torch.Tensor = None
+                ) -> torch.Tensor:
+    """frames (F, E); ids a range-checked contiguous int32 numpy array or
+    an int32 tensor on the frames' device -> ``out`` (by default a new
+    (n, E) tensor), rows past ``out``'s end dropped."""
+    n, E = len(ids), frames.shape[1]
     if out is None:
         out = torch.empty((n, E), dtype=frames.dtype, device=frames.device)
-    _check_args(frames, out, ids)
+    if isinstance(ids, torch.Tensor):
+        _check_args(frames, out, ids)
+    else:
+        _check_args(frames, out)
+    if n == 0 or out.numel() == 0:
+        return out
     isz = frames.element_size()
     row, limit = E * isz, out.numel() * isz
-    fn = build.function("paging", "page_gather",
-                        [_P, _P, _P, _L, _L, _L, _I, _P])
-    unit = build.copy_unit(row, limit, frames, out)
-    dispatch.count_launch("page_gather", pages=n, route="copy_rows")
-    err = fn(frames.data_ptr(), ids.data_ptr(), out.data_ptr(), n, row,
-             limit, unit, build.stream(frames.device))
-    build.check(err, "page_gather")
+    route = bulk_copy.gather_ids(out, frames, ids, row, limit)
+    if route is None:
+        if isinstance(ids, np.ndarray):
+            ids = torch.from_numpy(ids).to(frames.device)
+        fn = build.function("paging", "page_gather",
+                            [_P, _P, _P, _L, _L, _L, _I, _P])
+        unit = build.copy_unit(row, limit, frames, out)
+        err = fn(frames.data_ptr(), ids.data_ptr(), out.data_ptr(), n, row,
+                 limit, unit, build.stream(frames.device))
+        build.check(err, "page_gather")
+        route = "copy_rows"
+    dispatch.count_launch("page_gather", pages=n, route=route)
     return out
 
 

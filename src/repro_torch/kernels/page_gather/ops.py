@@ -17,11 +17,13 @@ from repro_torch.kernels.page_gather.ref import (page_gather_ref,
 
 
 def kernel_ids(page_ids, num_frames: int, device):
-    """Page ids for a kernel call: a tensor becomes a contiguous int32
-    tensor on ``device`` (not read back, which would synchronise); host ids
-    become a contiguous int32 numpy array, range-checked here, where it
-    costs no device round trip: a kernel would read or write out of bounds
-    where PyTorch indexing raises."""
+    """Page ids in their one form on the kernel path: a tensor becomes a
+    contiguous int32 tensor on ``device`` (not read back, which would
+    synchronise); host ids become a contiguous int32 numpy array,
+    range-checked here, where it costs no device round trip: a kernel would
+    read or write out of bounds where PyTorch indexing raises.  The pool's
+    own tables (1-D contiguous int32) pass through as they are, uncopied.
+    Plain versions make their own tensors from either form."""
     if isinstance(page_ids, torch.Tensor):
         return page_ids.to(device=device, dtype=torch.int32).reshape(-1) \
             .contiguous()
@@ -35,13 +37,6 @@ def kernel_ids(page_ids, num_frames: int, device):
     if ids.size and (ids.min() < 0 or ids.max() >= num_frames):
         raise IndexError(f"page ids out of range [0, {num_frames})")
     return ids.astype(np.int32)
-
-
-def page_ids_tensor(page_ids, num_frames: int, device) -> torch.Tensor:
-    """Page ids as a contiguous int32 tensor on ``device`` (host ids
-    range-checked, as in :func:`kernel_ids`)."""
-    return torch.as_tensor(kernel_ids(page_ids, num_frames, device),
-                           device=device)
 
 
 def run_table(starts, lens, num_frames: int):
@@ -67,8 +62,8 @@ def page_gather(frames: torch.Tensor, page_ids, *, backend: str = "auto"):
     """Gather pool frames by page id: frames (F, E); page_ids (n,) ->
     (n, E).  Duplicate ids are allowed."""
     _check_frames(frames)
-    ids = page_ids_tensor(page_ids, frames.shape[0], frames.device)
-    if ids.numel() == 0:
+    ids = kernel_ids(page_ids, frames.shape[0], frames.device)
+    if len(ids) == 0:
         return frames.new_zeros((0, frames.shape[1]))
     impl = dispatch.resolve_backend(backend, kernel_name="page_gather",
                                     device=frames.device)
@@ -101,11 +96,11 @@ def gather_assemble(frames: torch.Tensor, page_ids, shape, *,
     reshape) with no intermediate page list.  ``out_dtype`` other than the
     frames' dtype is a cast afterwards."""
     _check_frames(frames)
-    ids = page_ids_tensor(page_ids, frames.shape[0], frames.device)
+    ids = kernel_ids(page_ids, frames.shape[0], frames.device)
     shape = tuple(int(s) for s in shape)
     size = int(np.prod(shape)) if shape else 1
-    if size > ids.numel() * frames.shape[1]:
-        raise ValueError(f"{ids.numel()} pages of {frames.shape[1]} cannot "
+    if size > len(ids) * frames.shape[1]:
+        raise ValueError(f"{len(ids)} pages of {frames.shape[1]} cannot "
                          f"fill shape {shape}")
     impl = dispatch.resolve_backend(backend, kernel_name="page_gather",
                                     device=frames.device)

@@ -5,9 +5,11 @@ import numpy as np
 import torch
 
 
-def page_gather_ref(frames: torch.Tensor, page_ids: torch.Tensor):
-    """frames: (F, page_elems); page_ids: (n,) int -> (n, page_elems)."""
-    return torch.index_select(frames, 0, page_ids.to(torch.long))
+def page_gather_ref(frames: torch.Tensor, page_ids):
+    """frames: (F, page_elems); page_ids: (n,) int, a tensor or a host
+    array -> (n, page_elems)."""
+    ids = torch.as_tensor(page_ids, device=frames.device)
+    return torch.index_select(frames, 0, ids.to(torch.long))
 
 
 def expand_runs(starts, lens) -> np.ndarray:

@@ -46,7 +46,7 @@ def paged_attention(q, kv_pages_k, kv_pages_v, page_table, lengths, *,
     kt = _table(page_table, dev, F)
     vt = kt if v_page_table is None else _table(v_page_table, dev, F)
     lens = _table(lengths, dev)
-    st = torch.zeros_like(lens) if starts is None else _table(starts, dev)
+    st = None if starts is None else _table(starts, dev)
     if impl == dispatch.IMPL_TORCH:
         return paged_attention_ref(q, kv_pages_k, kv_pages_v, kt, lens, st,
                                    vt)

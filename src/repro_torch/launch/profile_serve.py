@@ -24,7 +24,7 @@ from repro_torch.fork import ForkPolicy
 from repro_torch.launch import serve
 from repro_torch.serving.engine import ServingEngine
 
-PORT_KERNELS = ("copy_rows", "paged_attention_kernel")
+PORT_KERNELS = ("copy_rows", "bulk_copy", "paged_attention_")
 
 
 def _category(name: str) -> str:

@@ -94,3 +94,49 @@ def test_kernel_ids_stay_on_their_side():
         kernel_ids([4], 4, torch.device("cpu"))
     t = kernel_ids(torch.tensor([[7, 9]]), 4, torch.device("cpu"))
     assert t.dtype == torch.int32 and t.tolist() == [7, 9]
+
+
+@pytest.mark.parametrize("n, on_device, row, base, want", [
+    (64, False, 512, 0, "bulk-value"),
+    (100, False, 512, 0, "bulk-value"),          # exactly the capacity
+    (101, False, 512, 0, "bulk-device"),         # one past it: uploaded
+    (3, True, 512, 0, "bulk-device"),            # read where they are
+    (3, False, 2002, 0, None),                   # odd bf16 rows
+    (101, False, 512, 4, None),                  # misaligned: no upload
+])
+def test_ids_route_follows_the_bulk_rule(n, on_device, row, base, want):
+    """The row-id copies' route (``scatter_ids``/``gather_ids``), decided
+    on the host before any upload, with a by-value capacity of 100."""
+    ids = np.arange(n, dtype=np.int32)
+    if on_device:
+        ids = torch.from_numpy(ids)
+    assert bulk_copy.ids_route(ids, row, 100, 0x10000 + base, 0x20000) \
+        == want
+
+
+def test_pool_passes_its_int32_ids_through_uncopied(monkeypatch):
+    """A device pool's gathers hand the kernel path the pool's own int32
+    table: ``kernel_ids`` returns the same array, not a copy."""
+    from repro_torch.kernels.page_gather import ops as pg
+    from repro_torch.memory.pool import PagePool
+    seen = []
+    real = pg.kernel_ids
+
+    def spy(page_ids, num_frames, device):
+        out = real(page_ids, num_frames, device)
+        seen.append((page_ids, out))
+        return out
+    monkeypatch.setattr(pg, "kernel_ids", spy)
+    pool = PagePool(page_elems=E, device="cpu")
+    frames = pool.alloc("float32", 6)
+    pages = torch.arange(6 * E, dtype=torch.float32).reshape(6, E)
+    pool.write_pages("float32", frames, pages)
+    picked = [int(frames[4]), int(frames[1]), int(frames[4])]
+    got = pool.read_pages("float32", picked)
+    assert torch.equal(got, pages[[4, 1, 4]])
+    t = pool.assemble("float32", frames[:3], (3 * E - 5,))
+    assert torch.equal(t, pages[:3].reshape(-1)[:3 * E - 5])
+    assert len(seen) == 2
+    for arg, out in seen:
+        assert isinstance(arg, np.ndarray) and arg.dtype == np.int32
+        assert out is arg
