@@ -16,7 +16,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    kernel with its table in the launch or in device memory, or
    ``copy_rows``): index tables of exactly the by-value capacity and one
    more, ids already on the card, odd row sizes, a misaligned payload or
-   output, ``scatter_patch`` onto a partial last page; each attention case
+   output, ``scatter_patch`` onto a partial last page, and the replay
+   phase's 4 KiB fp32 pages (one page, a 16-page run, 64 pages over two
+   VMAs, each table off a 16 KB boundary); each attention case
    its route (``tma``, or ``loads`` for rows off 16 bytes) and the number
    of splits its plan gives, including a long sequence and empty ranges
    split across blocks; time kernel, plain version and library call with
@@ -34,14 +36,40 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and every request's paged-engine logits must be close to the non-paged
    model's on the same card; the pages each kernel moved and the route
    counts are printed;
-5. print one JSON line with every kernel's numbers, the card line again,
+5. the serverless platform for gemma3-1b at full width: four nodes, one
+   ``Coordinator(seed_replicas=2)``.  A function whose behaviour
+   materializes its instance and answers one prompt through the
+   ``ServingEngine`` is invoked three times with ``policy="fork"``: the
+   first coldstarts and becomes a sharded seed (its second replica made
+   by an eager fork), the next two fork children whose VMAs are routed
+   across both replicas.  Every child's parameters must equal the seed's,
+   its tokens the seed's tokens, and both replica parents must have
+   served pages.  Then one ``StragglerMonitor.mitigate`` backup fork, and
+   the FINRA workflow (``build_finra``, a 6 MB market tensor, 8 audit
+   rules) by fork and by message: equal results, and every audit child
+   faulted in the market's pages only.  All four copy kernels must have
+   launched, page_gather, page_gather_runs and cow_scatter through the
+   bulk-copy kernel;
+6. trace replay on pools on the card: Figure 20's spike (10,050
+   invocations, 64 nodes, 4 KiB pages) under ``ForkOnDemand`` and
+   ``KeepWarm``, whose event-log digests must equal ``BENCH_spikes.json``'s
+   ``mitosis`` and ``caching`` (the ``mitosis`` row also on host pools,
+   timed beside it); Figure 22's targeted crash of a seed parent (1,608
+   invocations, 32 nodes), whose digest must equal ``BENCH_faults.json``'s
+   ``crash``; then one crash plan on a small cluster,
+   replayed on the card and on host pools, with equal summary digests.
+   Copy kernels must have launched;
+7. print one JSON line with every kernel's numbers, the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Launches made in phase 3 and in phase 4's checks are not in the counts:
 the counts are reset just before the serve run and read just after it.
+Phases 5 and 6 reset them before they start and print their own.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -74,6 +102,21 @@ DESIGN = {"page_gather": "bulk-tma", "page_gather_runs": "bulk-tma",
           "cow_scatter": "bulk-tma", "cow_scatter_runs": "copy_rows",
           "paged_attention": "split-tma"}
 BULK = ("bulk-value", "bulk-device")
+COPY_KERNELS = KERNELS[:4]
+# Figure 20's replay (benchmarks/fig20_spikes.py), copied: 4 KiB pages,
+# 16 pages of state of which 5% are touched, 30 ms of execution, a 167 ms
+# coldstart, containers held for the trace's 60 s minute, 4 seed replicas
+# against 4 prewarmed containers, the spike at x50 over 64 nodes
+FIG20 = dict(page_elems=1024, state_pages=16, touch=0.05, exec_s=0.030,
+             coldstart_s=0.167, hold_s=60.0, budget=4, ttl=60.0, scale=50,
+             nodes=64, seed=20260809)
+# Figure 22's targeted crash (benchmarks/fig22_faults.py), copied: the spike
+# at x8 over 32 nodes of 8 links, 64 pages over 2 VMAs paged in across a
+# 0.5 s execution, 2 replicas, re-routing past 0.05 s of backlog, and the
+# seed's parent n0 crashing 25 s into the burst minute
+FIG22 = dict(scale=8, nodes=32, links=8, page_elems=1024, state_pages=64,
+             vmas=2, touch=0.5, exec_s=0.5, hold_s=60.0, replicas=2,
+             reroute=0.05, crash_t=325.0, op_fail_rate=0.02, seed=20260809)
 
 
 def card_line() -> str:
@@ -210,7 +253,29 @@ def copy_cases(limits):
              ([32], [n_emb]), "copy_rows"),
         case("cow_scatter_runs", "skewed-runs", "bfloat16", 8192, E,
              ([0, 3000, 5000, 7000], [2500, 1, 1999, 900]), "copy_rows"),
-    ]
+    ] + replay_cases(case)
+
+
+def replay_cases(case):
+    """The replay phase's copies, for each copy kernel: fp32 pages of
+    1,024 elements (4 KiB rows, four to a 16 KB bulk-copy chunk) in a
+    pool of ``build_cluster``'s 4,096 frames, with the replay's id shapes: one page out of a
+    16-page VMA, a 16-page run and 64 pages over 2 VMAs.  Every table
+    starts off a 16 KB boundary."""
+    shapes = (("one-page-of-16", [37], [1]), ("16-page-run", [33], [16]),
+              ("64-pages-2-vmas", [101, 170], [32, 32]))
+    route = {"page_gather": "bulk-value", "page_gather_runs": "bulk-value",
+             "cow_scatter": "bulk-value", "cow_scatter_runs": "copy_rows"}
+    out = []
+    for name in COPY_KERNELS:
+        for label, starts, lens in shapes:
+            spec = ((starts, lens) if name.endswith("_runs") else
+                    np.concatenate([np.arange(s, s + n)
+                                    for s, n in zip(starts, lens)]))
+            out.append(case(name, f"replay-{label}", "float32",
+                            4096, FIG20["page_elems"],
+                            spec, route[name]))
+    return out
 
 
 def routes_of(dispatch, call):
@@ -687,6 +752,359 @@ def main_path(torch):
     return launches, pages, routes
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the serverless platform and trace replay
+# ---------------------------------------------------------------------------
+
+
+def phase_counts():
+    from repro_torch.kernels import dispatch
+    return ({k: int(dispatch.launches.get(k, 0)) for k in KERNELS},
+            {k: int(dispatch.pages_moved.get(k, 0)) for k in KERNELS},
+            dict(dispatch.routes))
+
+
+def check_phase(phase, launches, routes, required, bulk=()):
+    """Fail unless every ``required`` kernel launched in the phase and every
+    ``bulk`` kernel took a bulk-copy route at least once."""
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{phase}: never launched {missing}: "
+                             f"{launches}")
+    for k in bulk:
+        if not any(routes.get(f"{k}.{r}", 0) for r in BULK):
+            raise AssertionError(f"{phase}: {k} never took the bulk-copy "
+                                 f"kernel: {routes}")
+
+
+def same_leaves(torch, got, want, what):
+    got, want = dict(flat_leaves(got)), dict(flat_leaves(want))
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: leaf names differ from the seed's")
+    for name, t in want.items():
+        if got[name].device != t.device or not torch.equal(got[name], t):
+            raise AssertionError(f"{what}: leaf {name} differs")
+
+
+def platform_phase(torch, dev, arch="gemma3-1b", market_mb=6.0,
+                   n_rules=8):
+    """Phase 5 on ``dev``; returns its summary.  The kernel counts are the
+    caller's to reset and read."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import lm
+    from repro_torch.net import Network
+    from repro_torch.placement import ShardedSeed
+    from repro_torch.platform.coordinator import Coordinator, FunctionDef
+    from repro_torch.platform.node import NodeRuntime
+    from repro_torch.platform.straggler import StragglerMonitor
+    from repro_torch.platform.workflow import build_finra, run_workflow
+    from repro_torch.serving.engine import ServingEngine
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    cfg = dataclasses.replace(get_arch(arch), compute_dtype="float32")
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    net = Network()
+    nodes = [NodeRuntime(f"inv{i}", net, device_pool=True, device=dev)
+             for i in range(4)]
+    coord = Coordinator(net, nodes, seed_replicas=2)
+    prompt = torch.randint(0, cfg.vocab_size, (6,),
+                           generator=torch.Generator().manual_seed(1)).tolist()
+    marks = {}
+
+    def answer(inst, ctx):
+        tree = inst.materialize_pytree()
+        sync()
+        marks["materialized"] = time.perf_counter()
+        eng = ServingEngine(cfg, tree, device=dev)
+        rid = eng.submit(prompt, max_tokens=4)
+        return {"tokens": list(eng.run_to_completion()[rid])}
+
+    coord.register_function(FunctionDef("gemma", cfg.name, lambda: params,
+                                        answer))
+    invocations, seed_tokens = [], None
+    for i in range(3):
+        busy0 = {n.node_id: net.node_busy(n.node_id) for n in nodes}
+        sim0 = net.sim_time
+        t0 = time.perf_counter()
+        out, inst = coord.invoke("gemma", policy="fork")
+        sync()
+        wall = time.perf_counter() - t0
+        seed = coord.seed_store["gemma"]
+        if not isinstance(seed, ShardedSeed) or seed.replicas != 2:
+            raise AssertionError(f"gemma's seed is {seed!r}, not 2 replicas")
+        parents = seed.parent_nodes
+        row = {"invocation": i, "node": inst.node.node_id,
+               "kind": "fork" if inst.ancestry else "coldstart",
+               "fork_wall_s": marks["materialized"] - t0,
+               "invoke_wall_s": wall,
+               "pages_rdma": inst.stats["pages_rdma"],
+               "sim_time_s": net.sim_time - sim0, "tokens": out["tokens"],
+               "parents": parents,
+               "busy_s": {p: net.node_busy(p) - busy0[p] for p in parents}}
+        if i == 0:
+            if inst.ancestry:
+                raise AssertionError("the first invocation did not coldstart")
+            seed_tokens = out["tokens"]
+        else:
+            owners = sorted({v.ancestry[0] for v in inst.aspace.values()})
+            row["owners"] = owners
+            if owners != sorted(parents):
+                raise AssertionError(f"child {i}: VMAs routed to {owners}, "
+                                     f"not across {parents}")
+            if not all(b > 0 for b in row["busy_s"].values()):
+                raise AssertionError(f"child {i}: a replica parent served "
+                                     f"no page: {row['busy_s']}")
+            same_leaves(torch, inst.materialize_pytree(), params,
+                        f"child {i}")
+            if out["tokens"] != seed_tokens:
+                raise AssertionError(f"child {i}: tokens {out['tokens']} != "
+                                     f"the seed's {seed_tokens}")
+        invocations.append(row)
+        print("[smoke] platform invocation " + json.dumps(row))
+        coord.release("gemma", inst, "fork")
+
+    # straggler: back up the worker state of the slow replica's node
+    seed = coord.seed_store["gemma"]
+    slow = seed.handles[0]
+    mon = StragglerMonitor(net, threshold=2.0)
+    for _ in range(5):
+        for n in nodes:
+            mon.report(n.node_id, 0.4 if n.node_id == slow.parent_node
+                       else 0.1)
+    if mon.stragglers() != [slow.parent_node]:
+        raise AssertionError(f"stragglers: {mon.stragglers()}")
+    spare = next(n for n in nodes if n.node_id not in seed.parent_nodes)
+    t0 = time.perf_counter()
+    backup = mon.mitigate(slow.parent_node, slow, spare)
+    same_leaves(torch, backup.materialize_pytree(), params, "backup")
+    sync()
+    straggler = {"straggler": slow.parent_node, "backup_on": spare.node_id,
+                 "backup_wall_s": time.perf_counter() - t0,
+                 "pages_rdma": backup.stats["pages_rdma"]}
+    mon.resolve(slow.parent_node, winner=spare.node_id)
+    backup.free()
+    print("[smoke] platform straggler " + json.dumps(straggler))
+
+    # FINRA: fetch pre-materializes the market, the audit rules read it
+    market = torch.randn(int(market_mb * 2**20 / 4), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    market_pages = -(-market.numel() // nodes[0].pool.page_elems)
+    audits = []
+
+    def fetch(inst, ctx):
+        if ctx["transfer"] == "message":
+            return {"market": market}
+        inst.add_tensor("globals/market", market)
+        return {"rows": market.numel()}
+
+    def audit(inst, ctx):
+        if "msg:fetchData" in ctx:
+            data = ctx["msg:fetchData"]["market"]      # deserialized copy
+            v = int((np.abs(data) > 3.5).sum())
+        else:
+            v = int((inst.ensure_tensor("globals/market").abs() > 3.5).sum())
+        audits.append((ctx["transfer"], inst.stats["pages_rdma"]))
+        return {"violations": v}
+
+    coord.register_function(FunctionDef("finra-fetch", cfg.name,
+                                        lambda: params, fetch))
+    coord.register_function(FunctionDef("finra-audit", cfg.name,
+                                        lambda: params, audit))
+    wf = build_finra(coord, market_mb=market_mb, n_rules=n_rules)
+    finra = {}
+    for transfer in ("fork", "message"):
+        sim0, msg0 = net.sim_time, net.meter["msg_bytes"]
+        t0 = time.perf_counter()
+        res = run_workflow(coord, wf, {"transfer": transfer},
+                           transfer=transfer,
+                           fan_out={"runAuditRule": n_rules})
+        sync()
+        finra[transfer] = {
+            "wall_s": time.perf_counter() - t0,
+            "sim_time_s": net.sim_time - sim0,
+            "msg_bytes": net.meter["msg_bytes"] - msg0,
+            "audit_pages_rdma": [p for t, p in audits if t == transfer],
+            "violations": [r["violations"] for r in res["runAuditRule"]]}
+    if finra["fork"]["violations"] != finra["message"]["violations"] \
+            or len(finra["fork"]["violations"]) != n_rules:
+        raise AssertionError(f"FINRA results differ: {finra}")
+    for p in finra["fork"]["audit_pages_rdma"]:
+        if not market_pages <= p <= market_pages + 1:
+            raise AssertionError(f"an audit child faulted {p} pages, not the "
+                                 f"market's {market_pages} (+1 prefetch)")
+    if finra["fork"]["msg_bytes"] or not finra["message"]["msg_bytes"]:
+        raise AssertionError(f"FINRA message bytes: {finra}")
+    print("[smoke] platform finra " + json.dumps(finra))
+    return {"arch": cfg.name, "d_model": cfg.d_model,
+            "layers": cfg.num_layers, "vocab": cfg.vocab_size,
+            "seed_pages": sum(v.npages for v in
+                              coord.nodes[seed.parent_node].seeds[
+                                  seed.handler_id].instance.aspace.values()),
+            "invocations": invocations, "straggler": straggler,
+            "finra": finra, "market_pages": market_pages,
+            "gc": {k: v for k, v in coord.gc().items()
+                   if k in ("seeds", "cached", "dangling", "rereplicated")}}
+
+
+def fig22_replay(device, faults=None):
+    """Figure 22's replay (``FIG22``) with every pool on ``device`` (None:
+    host pools) under ``faults(node_ids, trace_seconds)``, by default the
+    crash of the seed's parent n0 at ``crash_t``; returns the result."""
+    from repro_torch.net import NetModel
+    from repro_torch.sim import (Crash, FaultPlan, ForkOnDemand,
+                                 ReplayEngine, SimFunction, build_cluster,
+                                 spike_660323)
+
+    @dataclasses.dataclass(frozen=True)
+    class PhasedFunction(SimFunction):
+        """Half the working set paged in at the start, the rest half an
+        execution later: a parent lost mid-run leaves remote pages."""
+
+        def behavior(self, inst, inputs):
+            for name, vma in inst.aspace.items():
+                n = max(1, int(round(vma.npages * self.touch_frac)))
+                inst.fetch_pages(name, np.arange(n // 2))
+                inst.node.network.advance(self.exec_s / 2)
+                inst.fetch_pages(name, np.arange(n // 2, n))
+            return {}
+
+    g = FIG22
+    trace = spike_660323(scale=g["scale"])
+    net, nodes = build_cluster(g["nodes"], model=NetModel(node_links=g[
+        "links"]), page_elems=g["page_elems"], device=device)
+    plan = (faults([n.node_id for n in nodes], trace.duration_s) if faults
+            else FaultPlan(seed=1, crashes=(Crash(g["crash_t"], "n0"),),
+                           op_fail_rate=g["op_fail_rate"]))
+    return ReplayEngine(
+        trace, ForkOnDemand(replicas=g["replicas"], prefetch=0),
+        [PhasedFunction("spike", state_bytes=g["state_pages"]
+                        * g["page_elems"] * 4, vmas=g["vmas"],
+                        touch_frac=g["touch"], exec_s=g["exec_s"],
+                        hold_s=g["hold_s"])],
+        network=net, nodes=nodes, seed=g["seed"],
+        reroute_backlog=g["reroute"], faults=plan).run()
+
+
+def replay_phase(torch, dev):
+    """Phase 6 with every node's pool on ``dev``; returns its summary."""
+    from repro_torch.sim import (Crash, FaultPlan, ForkOnDemand, KeepWarm,
+                                 ReplayEngine, SimFunction, Trace,
+                                 spike_660323)
+    f = FIG20
+    fn = SimFunction("spike", state_bytes=f["state_pages"] * f["page_elems"]
+                     * 4, touch_frac=f["touch"], exec_s=f["exec_s"],
+                     coldstart_s=f["coldstart_s"], hold_s=f["hold_s"])
+    want = json.loads((ROOT / "BENCH_spikes.json").read_text())[
+        "replay"]["event_log_digest"]
+    rows = []
+    # the MITOSIS row once more on host pools: the same digest, and the
+    # wall time apart tells the device pools' share of the per-fork cost
+    for label, pools, policy in (
+            ("mitosis", "card", ForkOnDemand(replicas=f["budget"],
+                                             prefetch=0)),
+            ("caching", "card", KeepWarm(ttl=f["ttl"], prewarm=f["budget"])),
+            ("mitosis", "host", ForkOnDemand(replicas=f["budget"],
+                                             prefetch=0))):
+        device = dev if pools == "card" else None
+        eng = ReplayEngine(spike_660323(scale=f["scale"]), policy, [fn],
+                           n_nodes=f["nodes"], seed=f["seed"],
+                           page_elems=f["page_elems"], device=device)
+        if any(n.pool.device != device for n in eng.nodes):
+            raise AssertionError(f"a replay node's pool is not on {device}")
+        t0 = time.perf_counter()
+        res = eng.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        s = res.summary()
+        row = {"policy": label, "pools": pools,
+               "invocations": s["invocations"], "nodes": s["nodes"],
+               "wall_s": wall, "wall_per_invocation_ms":
+               wall / s["invocations"] * 1e3,
+               "p50_us": s["latency"]["all"]["p50_us"],
+               "p99_us": s["latency"]["all"]["p99_us"],
+               "mem_peak_node_mb": s["mem_peak_node_mb"],
+               "decisions": s["decisions"],
+               "pages_rdma": s["payload_pages"].get("pages_rdma", 0),
+               "event_log_digest": s["event_log_digest"],
+               "bench_digest": want[label]}
+        if s["event_log_digest"] != want[label]:
+            raise AssertionError(f"{label} on {pools} pools: event log "
+                                 f"digest {s['event_log_digest']} != "
+                                 f"BENCH_spikes.json's {want[label]}")
+        rows.append(row)
+        print("[smoke] replay " + json.dumps(row))
+        del eng, res
+        gc.collect()
+
+    # Figure 22's targeted crash on pools on the card
+    bench22 = json.loads((ROOT / "BENCH_faults.json").read_text())["fig22"]
+    t0 = time.perf_counter()
+    s = fig22_replay(dev).summary()
+    fig22 = {"plan": "crash", "invocations": s["invocations"],
+             "nodes": s["nodes"], "wall_s": time.perf_counter() - t0,
+             "p99_us": s["latency"]["all"]["p99_us"],
+             "faults": s["faults"], "lease": s["lease"],
+             "event_log_digest": s["event_log_digest"],
+             "bench_digest": bench22["event_log_digest"]["crash"]}
+    if fig22["event_log_digest"] != fig22["bench_digest"]:
+        raise AssertionError(f"fig22 crash: event log digest differs from "
+                             f"BENCH_faults.json's: {fig22}")
+    print("[smoke] replay fig22 " + json.dumps(fig22))
+    gc.collect()
+
+    # one crash of the seed's first parent, replayed on the card and on
+    # host pools in the same process
+    crash = FaultPlan(crashes=(Crash(20.0, "n0"),))
+    crashed = {}
+    for where, device in (("card", dev), ("host", None)):
+        small = SimFunction("f", state_bytes=8 * 1024 * 4, touch_frac=0.5,
+                            hold_s=30.0)
+        t0 = time.perf_counter()
+        res = ReplayEngine(Trace("chaos", {"f": (4, 3, 4)}),
+                           ForkOnDemand(replicas=2, prefetch=0), [small],
+                           n_nodes=6, seed=7, page_elems=1024, faults=crash,
+                           device=device).run()
+        s = res.summary()
+        crashed[where] = {"digest": res.digest(),
+                          "wall_s": time.perf_counter() - t0,
+                          "faults": s["faults"], "lease": s["lease"],
+                          "decisions": s["decisions"]}
+    if crashed["card"]["digest"] != crashed["host"]["digest"]:
+        raise AssertionError(f"crash replay: card and host pools differ: "
+                             f"{crashed}")
+    if crashed["card"]["lease"].get("f", {}).get("parent_lost", 0) < 1 \
+            or crashed["card"]["faults"]["crashes_fired"] != 1:
+        raise AssertionError(f"the crash missed the seed: {crashed}")
+    print("[smoke] replay crash " + json.dumps(crashed))
+    return {"rows": rows, "fig22": fig22, "crash": crashed}
+
+
+def run_phase(torch, name, fn, required, bulk=()):
+    """Reset the kernel counts, run ``fn()``, check and print the phase's
+    launches, pages and routes; returns fn's summary and the counts."""
+    from repro_torch.kernels import dispatch
+    gc.collect()            # the last phase's cluster (reference cycles)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    dispatch.reset_meters()
+    t0 = time.perf_counter()
+    summary = fn()
+    torch.cuda.synchronize()
+    launches, pages, routes = phase_counts()
+    check_phase(name, launches, routes, required, bulk)
+    print(f"[smoke] {name} phase: " + json.dumps({
+        "wall_s": time.perf_counter() - t0, "launches": launches,
+        "pages_moved": pages, "routes": routes,
+        "peak_device_bytes": torch.cuda.max_memory_allocated()}))
+    return summary, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -739,6 +1157,17 @@ def main() -> int:
     torch.cuda.synchronize()
 
     launches, pages, routes = main_path(torch)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    run_phase(torch, "platform", lambda: platform_phase(torch, dev),
+              required=KERNELS,
+              bulk=("page_gather", "page_gather_runs", "cow_scatter"))
+    _, replay_launches = run_phase(torch, "replay",
+                                   lambda: replay_phase(torch, dev),
+                                   required=())
+    if not sum(replay_launches[k] for k in COPY_KERNELS):
+        raise AssertionError(f"replay launched no copy kernel: "
+                             f"{replay_launches}")
 
     kernels = []
     for name in KERNELS:
