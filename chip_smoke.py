@@ -59,12 +59,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ``crash``; then one crash plan on a small cluster,
    replayed on the card and on host pools, with equal summary digests.
    Copy kernels must have launched;
-7. print one JSON line with every kernel's numbers, the card line again,
+7. the model families (*models*): moonshot-v1-16b-a3b at full width, cut
+   to 4 of its 48 layers, through the serve driver (seed on node0, one
+   child on node1, 4 requests and the fork demo): the child bit-equal to
+   the seed (its 2.95 GB expert leaves included), each request's paged
+   logits close to the model's, the fork demo's close to the model's on
+   the same batches, all five kernels launched and page_gather's
+   device-table route taken; then zamba2-2.7b and xlstm-1.3b whole, each
+   packed, forked to one child and run for a 6-token prompt and 8 greedy
+   decode steps on seed and child: equal tokens and logits, bit for bit,
+   decode close to prefill, the paged engine refusing them.  Each model
+   resets the counts and prints a ``[smoke] models:`` line;
+8. print one JSON line with every kernel's numbers, the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Launches made in phase 3 and in phase 4's checks are not in the counts:
 the counts are reset just before the serve run and read just after it.
-Phases 5 and 6 reset them before they start and print their own.
+Phases 5, 6 and each model of 7 reset them before they start and print
+their own.
 """
 from __future__ import annotations
 
@@ -102,7 +114,16 @@ DESIGN = {"page_gather": "bulk-tma", "page_gather_runs": "bulk-tma",
           "cow_scatter": "bulk-tma", "cow_scatter_runs": "copy_rows",
           "paged_attention": "split-tma"}
 BULK = ("bulk-value", "bulk-device")
+BULK_KERNELS = ("page_gather", "page_gather_runs", "cow_scatter")
+ONE_SPLIT = ("gemma-decode", "moonshot-decode")   # attention cases, P = 1
 COPY_KERNELS = KERNELS[:4]
+# phase 7: moonshot at full width, cut to 4 of its 48 layers (all 48 are
+# 111 GB in fp32); zamba2 and xlstm whole.  Decode against prefill within
+# tests/test_models.py's tolerance for the reference
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_LAYERS = 4
+RECURRENT_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
+DECODE_TOL = {"rtol": 2e-2, "atol": 5e-3}
 # Figure 20's replay (benchmarks/fig20_spikes.py), copied: 4 KiB pages,
 # 16 pages of state of which 5% are touched, 30 ms of execution, a 167 ms
 # coldstart, containers held for the trace's 60 s minute, 4 seed replicas
@@ -124,6 +145,11 @@ def card_line() -> str:
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sync_dev(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -186,10 +212,12 @@ def copy_cases(limits):
     the route the case must take.  The first case of each kernel is the
     main path's largest call: the gemma3-1b embedding, 9,216 pages of 32,768
     elements (assembly gathers it page by page, the owner's read and the
-    child's adopt move it as one run).  ``limits`` are the bulk-copy
-    kernel's by-value capacities."""
+    child's adopt move it as one run).  The models phase's largest, one of
+    moonshot's expert leaves (22,528 fp32 pages, 2.95 GB: byte offsets
+    past 2^31), follows it the same three ways.  ``limits`` are the
+    bulk-copy kernel's by-value capacities."""
     rng = np.random.default_rng(0)
-    E, n_emb = 32768, 9216
+    E, n_emb, n_exp = 32768, 9216, 22528
     cap_ids, cap_spans = limits["ids"], limits["spans"]
 
     def case(name, label, dtype, F, E, spec, route, **kw):
@@ -204,6 +232,8 @@ def copy_cases(limits):
              np.arange(64, 64 + n_emb), "bulk-device"),
         case("page_gather", "embed-ids-on-device", "float32", n_emb + 64, E,
              np.arange(64, 64 + n_emb), "bulk-device", device_ids=True),
+        case("page_gather", "moe-expert-assemble", "float32", n_exp + 64, E,
+             np.arange(64, 64 + n_exp), "bulk-device"),
         case("page_gather", "scattered-dup", "bfloat16", 4096, E,
              rng.integers(0, 4096, 3000), "bulk-value"),
         case("page_gather", "single-page", "float32", 64, E, np.array([7]),
@@ -219,6 +249,8 @@ def copy_cases(limits):
              np.array([3, 9, 10, 3]), "copy_rows", misaligned=True),
         case("page_gather_runs", "embed-read", "float32", n_emb + 64, E,
              ([64], [n_emb]), "bulk-value"),
+        case("page_gather_runs", "moe-expert-read", "float32", n_exp + 64,
+             E, ([64], [n_exp]), "bulk-value"),
         # page_gather's embed-assemble ids, cut into runs on the host: the
         # alternative to uploading ids past the by-value capacity
         case("page_gather_runs", "embed-assemble-ids-cut-into-runs",
@@ -251,6 +283,8 @@ def copy_cases(limits):
              np.array([3, 9, 10]), "copy_rows", misaligned=True),
         case("cow_scatter_runs", "embed-adopt", "float32", n_emb + 64, E,
              ([32], [n_emb]), "copy_rows"),
+        case("cow_scatter_runs", "moe-expert-adopt", "float32", n_exp + 64,
+             E, ([32], [n_exp]), "copy_rows"),
         case("cow_scatter_runs", "skewed-runs", "bfloat16", 8192, E,
              ([0, 3000, 5000, 7000], [2500, 1, 1999, 900]), "copy_rows"),
     ] + replay_cases(case)
@@ -377,7 +411,8 @@ def run_copy_case(torch, case):
         def plain():
             return call("torch", plain_target)
     nbytes = 2 * n * E * frames.element_size()
-    reps = 10 if nbytes > (256 << 20) else 20
+    # a graph keeps every call's output: 3 calls past 4 GiB moved
+    reps = 3 if nbytes > (4 << 30) else 10 if nbytes > (256 << 20) else 20
     # device-only times where the call uploads nothing (a graph cannot
     # capture a copy from pageable host memory); the run-table scatter's
     # wrapper uploads its tables, so its kernel is timed from tables
@@ -494,7 +529,8 @@ def attention_cases():
     page-table columns or None for the lengths' pages and one padded
     column) — the first is the main path's decode at gemma3-1b's head shape
     (4 fork-demo sequences of about 8 tokens in a one-column table, one
-    split); then a long
+    split), the second the models phase's at moonshot's (MHA: 16 kv heads
+    of one query head each, hd 128, one split as well); then a long
     window batch and one long sequence with no window (split across the
     SMs), other head shapes (rows of 99 elements take the plain-load
     route), and empty ranges (starts == lengths, and a
@@ -502,6 +538,7 @@ def attention_cases():
     mean of V over every slot of the sequence's table."""
     return [
         ("gemma-decode", 4, 1, 4, 256, 16, [8, 9, 9, 9], 512, 1),
+        ("moonshot-decode", 4, 16, 1, 128, 16, [8, 9, 9, 9], None, 1),
         ("gemma-long-window", 8, 1, 4, 256, 16,
          [2048, 2000, 1999, 1500, 2048, 700, 1024, 2047], 512, None),
         ("gemma-global-long", 1, 1, 4, 256, 16, [8192], None, None),
@@ -556,7 +593,7 @@ def run_attention_case(torch, case, dtype):
         raise AssertionError(f"paged_attention/{label}: took {route}, "
                              f"expected {want_route}")
     splits, _ = plan.split_plan(B, K, P, kernel.sm_count(dev))
-    if (label == "gemma-decode") != (splits == 1):
+    if (label in ONE_SPLIT) != (splits == 1):
         raise AssertionError(f"paged_attention/{label}: {splits} splits")
     ms = time_ms(torch, lambda: call("kernel"))
     plain_ms = time_ms(torch, lambda: call("torch"))
@@ -649,6 +686,22 @@ def reference_logits(torch, lm, params, cfg, prefix, feed):
     return out
 
 
+def check_step(torch, got, want, token, where, ties) -> float:
+    """One step's logits against the reference's: returns the max abs
+    error.  A token other than the reference's argmax fails unless the
+    reference's top-2 gap is under LOGIT_TOL (a near-tie, appended to
+    ``ties`` with ``where``)."""
+    top2 = torch.topk(want, 2).values
+    gap = float(top2[0] - top2[1])
+    if int(torch.argmax(want)) != token:
+        if gap >= LOGIT_TOL:
+            raise AssertionError(f"{where}: token {token} != reference "
+                                 f"{int(torch.argmax(want))} (top-2 gap "
+                                 f"{gap})")
+        ties.append(dict(where, gap=gap))
+    return float((got - want).abs().max())
+
+
 def check_request(torch, lm, params, cfg, req, forked: bool):
     """Paged logits against the model's on the same tokens (the engine's
     own, so a near-tie cannot make the two runs diverge).  Returns
@@ -664,16 +717,8 @@ def check_request(torch, lm, params, cfg, req, forked: bool):
                              f"kept, {len(ref)} expected")
     err, ties = 0.0, []
     for step, (got, want) in enumerate(zip(req.logits, ref)):
-        err = max(err, float((got - want).abs().max()))
-        top2 = torch.topk(want, 2).values
-        gap = float(top2[0] - top2[1])
-        if int(torch.argmax(want)) != req.out_tokens[step]:
-            if gap >= LOGIT_TOL:
-                raise AssertionError(
-                    f"req {req.req_id} step {step}: token "
-                    f"{req.out_tokens[step]} != reference "
-                    f"{int(torch.argmax(want))} (top-2 gap {gap})")
-            ties.append({"req": req.req_id, "step": step, "gap": gap})
+        err = max(err, check_step(torch, got, want, req.out_tokens[step],
+                                  {"req": req.req_id, "step": step}, ties))
     if not err < LOGIT_TOL:
         raise AssertionError(f"req {req.req_id}: logits max abs err {err} "
                              f">= {LOGIT_TOL}")
@@ -701,7 +746,7 @@ def main_path(torch):
     if missing:
         raise AssertionError(f"main path never launched {missing}: "
                              f"{launches}")
-    for k in ("page_gather", "cow_scatter", "page_gather_runs"):
+    for k in BULK_KERNELS:
         if not any(routes.get(f"{k}.{r}", 0) for r in BULK):
             raise AssertionError(f"main path never took {k}'s bulk-copy "
                                  f"kernel: {routes}")
@@ -800,10 +845,6 @@ def platform_phase(torch, dev, arch="gemma3-1b", market_mb=6.0,
     from repro_torch.platform.workflow import build_finra, run_workflow
     from repro_torch.serving.engine import ServingEngine
 
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
     cfg = dataclasses.replace(get_arch(arch), compute_dtype="float32")
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             dev)
@@ -817,7 +858,7 @@ def platform_phase(torch, dev, arch="gemma3-1b", market_mb=6.0,
 
     def answer(inst, ctx):
         tree = inst.materialize_pytree()
-        sync()
+        sync_dev(torch, dev)
         marks["materialized"] = time.perf_counter()
         eng = ServingEngine(cfg, tree, device=dev)
         rid = eng.submit(prompt, max_tokens=4)
@@ -831,7 +872,7 @@ def platform_phase(torch, dev, arch="gemma3-1b", market_mb=6.0,
         sim0 = net.sim_time
         t0 = time.perf_counter()
         out, inst = coord.invoke("gemma", policy="fork")
-        sync()
+        sync_dev(torch, dev)
         wall = time.perf_counter() - t0
         seed = coord.seed_store["gemma"]
         if not isinstance(seed, ShardedSeed) or seed.replicas != 2:
@@ -881,7 +922,7 @@ def platform_phase(torch, dev, arch="gemma3-1b", market_mb=6.0,
     t0 = time.perf_counter()
     backup = mon.mitigate(slow.parent_node, slow, spare)
     same_leaves(torch, backup.materialize_pytree(), params, "backup")
-    sync()
+    sync_dev(torch, dev)
     straggler = {"straggler": slow.parent_node, "backup_on": spare.node_id,
                  "backup_wall_s": time.perf_counter() - t0,
                  "pages_rdma": backup.stats["pages_rdma"]}
@@ -922,7 +963,7 @@ def platform_phase(torch, dev, arch="gemma3-1b", market_mb=6.0,
         res = run_workflow(coord, wf, {"transfer": transfer},
                            transfer=transfer,
                            fan_out={"runAuditRule": n_rules})
-        sync()
+        sync_dev(torch, dev)
         finra[transfer] = {
             "wall_s": time.perf_counter() - t0,
             "sim_time_s": net.sim_time - sim0,
@@ -1017,8 +1058,7 @@ def replay_phase(torch, dev):
             raise AssertionError(f"a replay node's pool is not on {device}")
         t0 = time.perf_counter()
         res = eng.run()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync_dev(torch, dev)
         wall = time.perf_counter() - t0
         s = res.summary()
         row = {"policy": label, "pools": pools,
@@ -1082,6 +1122,258 @@ def replay_phase(torch, dev):
         raise AssertionError(f"the crash missed the seed: {crashed}")
     print("[smoke] replay crash " + json.dumps(crashed))
     return {"rows": rows, "fig22": fig22, "crash": crashed}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the model families
+# ---------------------------------------------------------------------------
+
+
+def model_cfg(arch: str, smoke: bool):
+    """(phase config, registered config) of ``arch``, float32: at smoke
+    size for a CPU rehearsal, each unit first cut to one block of each
+    kind (zamba2 keeps its shared attention, xlstm its sLSTM); else at
+    full width, moonshot cut to ``MOE_LAYERS`` of its layers and the
+    recurrent models whole."""
+    from repro_torch.configs.base import get_arch, reduce_for_smoke
+    full = get_arch(arch)
+    if smoke:
+        cfg = reduce_for_smoke(dataclasses.replace(full, groups=tuple(
+            dataclasses.replace(g, unit=tuple(dict.fromkeys(g.unit)))
+            for g in full.groups)))
+    elif arch == MOE_ARCH:
+        (g,) = full.groups
+        cfg = dataclasses.replace(
+            full, name=f"{arch}-{MOE_LAYERS}of{full.num_layers}",
+            groups=(dataclasses.replace(g, repeat=MOE_LAYERS),))
+    else:
+        cfg = full
+    return dataclasses.replace(cfg, compute_dtype="float32"), full
+
+
+def greedy(torch, lm, params, cfg, prompt, n, cache_len):
+    """``lm.prefill`` on ``prompt``, then ``n`` greedy ``lm.decode_step``s.
+    Returns the n + 1 tokens, each step's logits (fp32, on the CPU), the
+    prefill's seconds and the decode's seconds per step (device synced)."""
+    dev = params["embed"]["tok"].device
+    i32 = dict(dtype=torch.int32, device=dev)
+    sync_dev(torch, dev)
+    t0 = time.perf_counter()
+    logits, caches = lm.prefill(params, cfg, torch.tensor(prompt, **i32)[None],
+                                cache_len)
+    sync_dev(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    out = [logits[0].float().cpu()]
+    tokens = [int(torch.argmax(out[0]))]
+    t0 = time.perf_counter()
+    for i in range(n):
+        logits, caches = lm.decode_step(
+            params, cfg, caches, torch.tensor([tokens[-1]], **i32),
+            torch.tensor([len(prompt) + i], **i32))
+        out.append(logits[0].float().cpu())
+        tokens.append(int(torch.argmax(out[-1])))
+    sync_dev(torch, dev)
+    return tokens, out, prefill_s, (time.perf_counter() - t0) / n
+
+
+def map_cache(fn, caches):
+    return {"groups": [{"blocks": [{k: fn(v) for k, v in c.items()}
+                                   for c in g["blocks"]]}
+                       for g in caches["groups"]]}
+
+
+def check_demo_batch(torch, lm, params, cfg, demo):
+    """The fork demo's steps against ``lm.decode_step`` on the batches the
+    engine decoded: the parent alone until the fork, then the parent and
+    its children in the engine's order, each row leaving once its request
+    is done.  MoE capacity (hence which tokens an expert drops) depends on
+    the batch, so the rows must be the engine's.  Each row feeds the
+    engine's own tokens.  Returns (max abs err, near-tie steps)."""
+    eng = demo.engine
+    parent = eng.requests[demo.parent]
+    kids = [eng.requests[k] for k in demo.children]
+    dev = params["embed"]["tok"].device
+    fork_at = len(kids[0].prompt) - len(parent.prompt)
+    last = max(len(r.prompt) + len(r.logits) for r in [parent] + kids)
+    ties = []
+    logits, caches = lm.prefill(
+        params, cfg, torch.tensor(parent.prompt, dtype=torch.int32,
+                                  device=dev)[None], -(-last // 16) * 16)
+    err = check_step(torch, parent.logits[0], logits[0].float().cpu(),
+                     parent.out_tokens[0], {"req": parent.req_id, "step": 0},
+                     ties)
+    rows, step = [parent], {parent.req_id: 1}
+    while rows:
+        if rows == [parent] and step[parent.req_id] == fork_at:
+            rows = [parent] + kids
+            step.update({k.req_id: 0 for k in kids})
+            caches = map_cache(
+                lambda t: t.repeat_interleave(len(rows), dim=1), caches)
+        at = [len(r.prompt) - 1 + step[r.req_id] for r in rows]
+        feed = [(r.prompt + r.out_tokens)[p] for r, p in zip(rows, at)]
+        logits, caches = lm.decode_step(
+            params, cfg, caches,
+            torch.tensor(feed, dtype=torch.int32, device=dev),
+            torch.tensor(at, dtype=torch.int32, device=dev))
+        for j, r in enumerate(rows):
+            i = step[r.req_id]
+            err = max(err, check_step(
+                torch, r.logits[i], logits[j].float().cpu(), r.out_tokens[i],
+                {"req": r.req_id, "step": i, "batch": len(rows)}, ties))
+            step[r.req_id] = i + 1
+        keep = [j for j, r in enumerate(rows)
+                if step[r.req_id] < len(r.logits)]
+        if len(keep) < len(rows):
+            idx = torch.tensor(keep, dtype=torch.long, device=dev)
+            caches = map_cache(lambda t: t.index_select(1, idx), caches)
+            rows = [rows[j] for j in keep]
+    if not err < LOGIT_TOL:
+        raise AssertionError(f"fork demo: logits max abs err {err} >= "
+                             f"{LOGIT_TOL}")
+    return err, ties
+
+
+def model_line(torch, dev, cfg, full, **fields) -> dict:
+    """The ``[smoke] models:`` line of one model: its size, the counts of
+    the run so far, and ``fields``."""
+    from repro_torch.models import flops
+    launches, pages, routes = phase_counts()
+    n = flops.param_counts(cfg)[0]
+    line = {"arch": full.name, "layers": cfg.num_layers,
+            "of_layers": full.num_layers, "d_model": cfg.d_model,
+            "params": n, "param_gb": n * 4 / 1e9, **fields,
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+            "launches": launches, "pages_moved": pages, "routes": routes}
+    print("[smoke] models: " + json.dumps(line))
+    return line
+
+
+def moe_model(torch, dev, smoke=False) -> dict:
+    """Phase 7(a): moonshot at full width, ``MOE_LAYERS`` layers, through
+    ``launch/serve.main``: the seed on node0, one lazy child on node1
+    (prefetch 1) serving 4 requests of 6 tokens for 8, one at a time, then
+    the fork demo.  The child must equal the seed bit for bit, each
+    request's paged logits the model's, the demo's the model's on the same
+    batches; on the card page_gather must take its device-table route
+    (the expert leaves pass its by-value capacity)."""
+    from repro_torch.configs.base import register
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg, full = model_cfg(MOE_ARCH, smoke)
+    register(cfg)
+    print(f"[smoke] models: {full.name} at "
+          f"{'smoke size' if smoke else 'full width'}, {cfg.num_layers} of "
+          f"{full.num_layers} layers (all of them are 111 GB in fp32)")
+    st = serve.main(["--arch", cfg.name, "--nodes", "2", "--requests", "4",
+                     "--fork-demo", "--keep-logits", "--device", str(dev)])
+    sync_dev(torch, dev)
+    routes = phase_counts()[2]
+    if dev.type == "cuda" and not routes.get("page_gather.bulk-device"):
+        raise AssertionError(f"{cfg.name}: page_gather never read a device "
+                             f"table: {routes}")
+    (child,), (cp,) = st.children, st.child_params
+    same_leaves(torch, cp, st.params, f"{cfg.name} child")
+    demo = st.fork_demo
+    errs, ties = [], []
+    for req in demo.engine.requests.values():
+        if req.req_id != demo.parent and req.req_id not in demo.children:
+            e, t = check_request(torch, lm, cp, cfg, req, forked=False)
+            errs.append(e)
+            ties.extend(t)
+    e, t = check_demo_batch(torch, lm, cp, cfg, demo)
+    errs.append(e)
+    ties.extend(t)
+    for t in ties:
+        print(f"[smoke] near-tie step (tokens may differ): {json.dumps(t)}")
+    _, _, prefill_s, decode_s = greedy(torch, lm, cp, cfg, st.prompts[0], 8,
+                                       16)
+    snap = st.net.snapshot()
+    return model_line(
+        torch, dev, cfg, full, fork_wall_s=st.fork_seconds[0],
+        pages_rdma=child.stats["pages_rdma"],
+        sim_time_s=snap.get("sim_time"), prefill_ms=prefill_s * 1e3,
+        decode_ms_per_token=decode_s * 1e3,
+        requests_checked=len(errs) + len(demo.children),
+        logits_max_abs_err=max(errs), logits_tol=LOGIT_TOL,
+        near_ties=len(ties))
+
+
+def recurrent_model(torch, dev, arch, smoke=False) -> dict:
+    """Phase 7(b, c): ``arch`` whole, at full width: the seed packed on
+    node0 and one lazy child (prefetch 1) forked to node1.  Seed and child
+    each prefill a 6-token prompt (cache_len 16) and take 8 greedy decode
+    steps: equal tokens and logits, bit for bit.  Each decode step's
+    logits must match ``lm.prefill``'s on the prompt and the tokens so far
+    (``DECODE_TOL``), and the paged engine must refuse the arch.  Prefill
+    and decode are timed on the child's run, the model's second in the
+    process (the seed's first prefill is printed apart)."""
+    from repro_torch.core.instance import ModelInstance
+    from repro_torch.fork import ForkPolicy
+    from repro_torch.memory.paging import num_pages
+    from repro_torch.memory.pool import PAGE_ELEMS
+    from repro_torch.models import lm
+    from repro_torch.net import Network
+    from repro_torch.platform.node import NodeRuntime
+    from repro_torch.serving.engine import ServingEngine
+    cfg, full = model_cfg(arch, smoke)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    # reserve each pool's frames: a pool that grows doubles (copying), and
+    # xlstm's 14 GB would then need 4x that for a moment
+    frames = sum(num_pages(t.numel(), PAGE_ELEMS)
+                 for _, t in flat_leaves(params))
+    net = Network()
+    nodes = [NodeRuntime(f"node{i}", net, cache_enabled=True,
+                         device_pool=True, device=dev, pool_frames=frames)
+             for i in range(2)]
+    seed = ModelInstance.create(nodes[0], cfg.name, params)
+    handle = nodes[0].prepare_fork(seed)
+    t0 = time.perf_counter()
+    child = handle.resume_on(nodes[1], ForkPolicy(lazy=True, prefetch=1))
+    cp = child.materialize_pytree()
+    sync_dev(torch, dev)
+    fork_s = time.perf_counter() - t0
+    for n in nodes:
+        if n.pool.bytes_reserved() != frames * PAGE_ELEMS * 4:
+            raise AssertionError(f"{n.node_id}'s pool grew past {frames}")
+    same_leaves(torch, cp, params, f"{cfg.name} child")
+
+    prompt = torch.randint(0, cfg.vocab_size, (6,),
+                           generator=torch.Generator().manual_seed(1)).tolist()
+    toks, logits, first_prefill_s, _ = greedy(torch, lm, params, cfg,
+                                              prompt, 8, 16)
+    ctoks, clogits, prefill_s, decode_s = greedy(torch, lm, cp, cfg, prompt,
+                                                 8, 16)
+    if ctoks != toks or not all(torch.equal(a, b)
+                                for a, b in zip(clogits, logits)):
+        raise AssertionError(f"{cfg.name}: the child's tokens {ctoks} or "
+                             f"logits differ from the seed's {toks}")
+    err = excess = 0.0
+    for k in range(1, len(toks)):
+        want = lm.prefill(params, cfg, torch.tensor(
+            prompt + toks[:k], dtype=torch.int32, device=dev)[None], 16)[0]
+        want = want[0].float().cpu()
+        diff = (logits[k] - want).abs()
+        err = max(err, float(diff.max()))
+        excess = max(excess, float((diff - DECODE_TOL["atol"] - DECODE_TOL[
+            "rtol"] * want.abs()).max()))
+    if excess > 0:
+        raise AssertionError(f"{cfg.name}: decode differs from prefill by "
+                             f"{err} (past rtol/atol {DECODE_TOL})")
+    try:
+        ServingEngine(cfg, cp, device=dev)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"{cfg.name}: the paged engine took it")
+    return model_line(
+        torch, dev, cfg, full, fork_wall_s=fork_s,
+        pages_rdma=child.stats["pages_rdma"], sim_time_s=net.sim_time,
+        prefill_ms=prefill_s * 1e3, first_prefill_ms=first_prefill_s * 1e3,
+        decode_ms_per_token=decode_s * 1e3, tokens=toks, child_equal=True,
+        decode_vs_prefill_max_abs_err=err, decode_vs_prefill_tol=DECODE_TOL,
+        engine_refused=refused)
 
 
 def run_phase(torch, name, fn, required, bulk=()):
@@ -1160,14 +1452,21 @@ def main() -> int:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     run_phase(torch, "platform", lambda: platform_phase(torch, dev),
-              required=KERNELS,
-              bulk=("page_gather", "page_gather_runs", "cow_scatter"))
+              required=KERNELS, bulk=BULK_KERNELS)
     _, replay_launches = run_phase(torch, "replay",
                                    lambda: replay_phase(torch, dev),
                                    required=())
     if not sum(replay_launches[k] for k in COPY_KERNELS):
         raise AssertionError(f"replay launched no copy kernel: "
                              f"{replay_launches}")
+    models = {}
+    _, models[MOE_ARCH] = run_phase(torch, "models",
+                                    lambda: moe_model(torch, dev),
+                                    required=KERNELS, bulk=BULK_KERNELS)
+    for arch in RECURRENT_ARCHS:
+        _, models[arch] = run_phase(
+            torch, "models", lambda a=arch: recurrent_model(torch, dev, a),
+            required=COPY_KERNELS, bulk=BULK_KERNELS)
 
     kernels = []
     for name in KERNELS:
@@ -1176,6 +1475,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "design": DESIGN[name],
             "launches": launches[name], "pages": pages[name],
+            "models_launches": {a: n[name] for a, n in models.items()},
             "routes": {k.split(".", 1)[1]: v for k, v in routes.items()
                        if k.split(".", 1)[0] == name},
             "max_abs_err": main_row["max_abs_err"],

@@ -177,9 +177,12 @@ def list_archs():
 
 
 def _load_all():
-    # only the configurations the port serves so far; the rest follow
-    # their model families (ROADMAP queue A)
-    from repro_torch.configs import gemma3_1b, micro  # noqa: F401
+    # the configurations of the families the port serves so far; the
+    # rest follow (ROADMAP queue A)
+    from repro_torch.configs import (  # noqa: F401
+        gemma3_1b, zamba2_2_7b, kimi_k2_1t_a32b, moonshot_v1_16b_a3b,
+        xlstm_1_3b, micro,
+    )
 
 
 # ---------------------------------------------------------------------------

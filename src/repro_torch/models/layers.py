@@ -1,4 +1,4 @@
-"""Shared layers of the attention models: norms, RoPE, GQA attention
+"""Shared layers of the model families: norms, RoPE, GQA attention
 (prefill with its cache, one-token decode, global and sliding-window),
 MLPs, embedding and output head.
 
@@ -39,6 +39,13 @@ def ninit(gen: torch.Generator, shape, scale=None, fan_in_axis=None,
 def zinit(shape, device=None, stack: Optional[int] = None):
     full = tuple(shape) if stack is None else (stack,) + tuple(shape)
     return torch.zeros(full, dtype=torch.float32, device=device)
+
+
+def cinit(values: torch.Tensor, device=None, stack: Optional[int] = None):
+    """A constant fp32 leaf (the reference's ``jnp.ones``, ``linspace``...),
+    repeated over a group's ``stack`` axis."""
+    t = values.to(device=device, dtype=torch.float32)
+    return t if stack is None else t.expand((stack,) + tuple(t.shape)).clone()
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +234,13 @@ def attention_decode(params, x, spec, cfg, cache, pos):
     dt = x.dtype
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
     return y, {"k": ck, "v": cv}
+
+
+def init_attn_cache(cfg, spec, batch, cache_len, dtype, device=None):
+    w = min(spec.window, cache_len) if spec.window is not None else cache_len
+    shape = (batch, w, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,37 +1,34 @@
-"""Causal LM over the attention architectures.
+"""Unified causal LM over the model families: attention (dense or MoE
+MLP), Mamba2, mLSTM and sLSTM blocks.
 
 Layer stacks are (unit pattern) x repeat groups (configs/base.py).  As in
 the reference, the params of each block position in a unit are stacked
 over ``repeat`` (leading axis) and so are the caches; blocks marked
-``shared=True`` hold ONE param set at group level.  The reference scans
-over the repeat axis; here a Python loop applies the repeats in order.
-
-Only attention blocks (dense MLP) are ported.  MoE, Mamba and xLSTM
-blocks raise ``NotImplementedError`` (ROADMAP queue A, "other model
-families").
+``shared=True`` (zamba2's attention) hold ONE param set at group level,
+while their caches are still per application (stacked).  The reference
+scans over the repeat axis; here a Python loop applies the repeats in
+order.  ``forward``, ``loss_fn`` and ``logits_fn`` come with the training
+slice (ROADMAP queue A).
 
 API:
   init_params(cfg, generator, device)
+  init_cache(cfg, batch, cache_len, dtype, device)
   prefill(params, cfg, tokens, cache_len)            -> (last_logits, caches)
   decode_step(params, cfg, caches, token, pos)       -> (logits, caches)
 """
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 
 from repro_torch import _dtypes
-from repro_torch.configs.base import ArchConfig, AttnSpec
+from repro_torch.configs.base import (ArchConfig, AttnSpec, MambaSpec,
+                                      MLSTMSpec, SLSTMSpec)
 from repro_torch.models import layers as L
-
-_UNPORTED = ("not ported yet: MoE, Mamba and xLSTM blocks are ROADMAP "
-             "queue A, 'other model families'")
-
-
-def _check_spec(cfg: ArchConfig, spec) -> None:
-    if not isinstance(spec, AttnSpec):
-        raise NotImplementedError(f"{type(spec).__name__} {_UNPORTED}")
-    if cfg.moe_experts:
-        raise NotImplementedError(f"MoE MLP {_UNPORTED}")
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 
 
 def _has_mlp(cfg: ArchConfig, spec) -> bool:
@@ -42,36 +39,88 @@ def _has_mlp(cfg: ArchConfig, spec) -> bool:
 # per-block init / apply
 # ---------------------------------------------------------------------------
 
+class _Recurrent(NamedTuple):
+    """A recurrent block family: its params' key in the block, and its
+    functions (the prefill forward returns the final state)."""
+    key: str
+    init: Callable
+    forward: Callable
+    decode: Callable
+    init_cache: Callable
+
+
+_RECURRENT = {
+    MambaSpec: _Recurrent("mamba", SSM.init_mamba, SSM.mamba_forward,
+                          SSM.mamba_decode, SSM.init_mamba_cache),
+    MLSTMSpec: _Recurrent("mlstm", XL.init_mlstm, XL.mlstm_forward,
+                          XL.mlstm_decode, XL.init_mlstm_cache),
+    SLSTMSpec: _Recurrent("slstm", XL.init_slstm, XL.slstm_forward,
+                          XL.slstm_decode, XL.init_slstm_cache),
+}
+
+
+def _family(spec):
+    """The spec's recurrent family, or None for an attention block."""
+    fam = _RECURRENT.get(type(spec))
+    if fam is None and not isinstance(spec, AttnSpec):
+        raise TypeError(spec)
+    return fam
+
 
 def init_block(gen, cfg, spec, device=None, stack=None):
-    _check_spec(cfg, spec)
     kw = dict(device=device, stack=stack)
+    fam = _family(spec)
+    if fam is not None:
+        return {"norm1": L.init_rms_norm(cfg.d_model, **kw),
+                fam.key: fam.init(gen, cfg, spec, **kw)}
     p = {"norm1": L.init_rms_norm(cfg.d_model, **kw),
          "attn": L.init_attention(gen, cfg, spec, **kw)}
     if _has_mlp(cfg, spec):
         p["norm2"] = L.init_rms_norm(cfg.d_model, **kw)
-        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, **kw)
+        if cfg.moe_experts:
+            p["moe"] = MOE.init_moe(gen, cfg, **kw)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated,
+                                  **kw)
     return p
 
 
 def apply_block(params, h, cfg, spec, *, mode, positions=None, cache=None,
                 pos=None, cache_len=0):
     """mode: prefill | decode. Returns (h, cache_out)."""
-    _check_spec(cfg, spec)
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode must be prefill or decode, got {mode!r}")
+    fam = _family(spec)
     hn = L.rms_norm(h, params["norm1"]["scale"], cfg.norm_eps)
+    if fam is not None:
+        if mode == "decode":
+            y, cache_out = fam.decode(params[fam.key], hn, cfg, spec, cache)
+        else:
+            y, cache_out = fam.forward(params[fam.key], hn, cfg, spec,
+                                       return_state=True)
+        return h + y, cache_out
+
     if mode == "prefill":
         a, cache_out = L.attention_prefill(params["attn"], hn, spec, cfg,
                                            positions, cache_len)
-    elif mode == "decode":
+    else:
         a, cache_out = L.attention_decode(params["attn"], hn, spec, cfg,
                                           cache, pos)
-    else:
-        raise ValueError(f"mode must be prefill or decode, got {mode!r}")
     h = h + a
     if _has_mlp(cfg, spec):
         hn2 = L.rms_norm(h, params["norm2"]["scale"], cfg.norm_eps)
-        h = h + L.mlp(params["mlp"], hn2, cfg.mlp_gated)
+        if cfg.moe_experts:
+            h = h + MOE.moe_mlp(params["moe"], hn2, cfg)
+        else:
+            h = h + L.mlp(params["mlp"], hn2, cfg.mlp_gated)
     return h, cache_out
+
+
+def init_block_cache(cfg, spec, batch, cache_len, dtype, device=None):
+    fam = _family(spec)
+    if fam is None:
+        return L.init_attn_cache(cfg, spec, batch, cache_len, dtype, device)
+    return fam.init_cache(cfg, spec, batch, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +155,24 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda"):
     if cfg.param_dtype != "float32":
         params = _cast_tree(params, _dtypes.torch_dtype(cfg.param_dtype))
     return params
+
+
+def init_cache(cfg: ArchConfig, batch, cache_len, dtype=torch.bfloat16,
+               device="cuda"):
+    """Zero caches of every block, stacked over its group's repeats (a
+    shared block keeps one cache per application)."""
+    dtype = _dtypes.torch_dtype(dtype)
+    groups = []
+    for g in cfg.groups:
+        blocks = []
+        for spec in g.unit:
+            single = init_block_cache(cfg, spec, batch, cache_len, dtype,
+                                      device)
+            blocks.append({k: torch.zeros((g.repeat,) + tuple(v.shape),
+                                          dtype=v.dtype, device=v.device)
+                           for k, v in single.items()})
+        groups.append({"blocks": blocks})
+    return {"groups": groups}
 
 
 def _index_tree(tree, r):

@@ -1,0 +1,174 @@
+"""Mamba2 (State Space Duality) block: chunked-parallel prefill path +
+O(1)-state decode recurrence.
+
+Follows the SSD formulation (Dao & Gu, 2024): scalar per-head decay A,
+per-step dt (softplus), shared B/C projections (ngroups=1), causal depthwise
+conv on (x, B, C), gated output with RMSNorm.  The reference scans over
+chunks with ``lax.scan``; here a Python loop carries the state from chunk
+to chunk.  The reference's head-sharding constraints (Mamba tensor
+parallelism) belong to the distribution slice (ROADMAP queue A).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import (cinit, init_rms_norm, ninit, rms_norm,
+                                      zinit)
+
+
+def _dims(cfg, spec):
+    d_inner = spec.expand * cfg.d_model
+    nheads = d_inner // spec.head_dim
+    return d_inner, nheads, spec.d_state
+
+
+def softplus(x):
+    """jax.nn.softplus: log(1 + exp(x)) with no switch to the identity
+    (``F.softplus`` returns x itself past its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def init_mamba(gen, cfg, spec, device=None, stack=None):
+    d, (d_inner, nheads, N) = cfg.d_model, _dims(cfg, spec)
+    conv_ch = d_inner + 2 * N
+    kw = dict(device=device, stack=stack)
+    lin = np.linspace(1.0, 16.0, nheads, dtype=np.float32)
+    dtb = np.linspace(1e-3, 1e-1, nheads, dtype=np.float32)
+    return {
+        # [z, x, B, C, dt]
+        "in_proj": ninit(gen, (d, 2 * d_inner + 2 * N + nheads), **kw),
+        "conv_w": ninit(gen, (spec.d_conv, conv_ch), scale=0.1, **kw),
+        "conv_b": zinit((conv_ch,), **kw),
+        "A_log": cinit(torch.log(torch.from_numpy(lin)), **kw),
+        "dt_bias": cinit(torch.log(torch.expm1(torch.from_numpy(dtb))),
+                         **kw),
+        "D": cinit(torch.ones(nheads), **kw),
+        "norm": init_rms_norm(d_inner, **kw),
+        "out_proj": ninit(gen, (d_inner, d), **kw),
+    }
+
+
+def _split_proj(params, x, cfg, spec):
+    d_inner, nheads, N = _dims(cfg, spec)
+    zxbcdt = x @ params["in_proj"].to(x.dtype)
+    z = zxbcdt[..., :d_inner]
+    xbc = zxbcdt[..., d_inner:d_inner + d_inner + 2 * N]
+    dt = zxbcdt[..., -nheads:]
+    return z, xbc, dt
+
+
+def _conv_scan(params, xbc):
+    """Causal depthwise conv over (B, S, C)."""
+    w = params["conv_w"].to(xbc.dtype)                        # (d_conv, C)
+    d_conv = w.shape[0]
+    pad = F.pad(xbc, (0, 0, d_conv - 1, 0))
+    out = sum(pad[:, i:i + xbc.shape[1]] * w[i] for i in range(d_conv))
+    return F.silu(out + params["conv_b"].to(xbc.dtype))
+
+
+def check_chunks(S: int, chunk: int) -> int:
+    """The chunk length the scan uses, ``min(chunk, S)``; S must be a
+    multiple of it (the reference asserts the same)."""
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"seq must be divisible by chunk: {S} % {chunk}")
+    return chunk
+
+
+def mamba_forward(params, x, cfg, spec, chunk=256, return_state=False):
+    """x: (B, S, D). Chunked SSD scan; optionally return final SSM+conv state."""
+    B, S, D = x.shape
+    d_inner, H, N = _dims(cfg, spec)
+    P = spec.head_dim
+    dt_ = x.dtype
+    f32 = torch.float32
+
+    z, xbc_raw, dt = _split_proj(params, x, cfg, spec)
+    xbc = _conv_scan(params, xbc_raw)
+    xs = xbc[..., :d_inner].reshape(B, S, H, P)
+    Bm = xbc[..., d_inner:d_inner + N]                        # (B,S,N)
+    Cm = xbc[..., d_inner + N:]
+
+    A = -torch.exp(params["A_log"].float())                   # (H,) negative
+    dt = softplus(dt.float() + params["dt_bias"].float())
+    dA = dt * A                                               # (B,S,H) log-decay
+
+    chunk = check_chunks(S, chunk)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))[None, :, :, None]
+    state = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
+    ys = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        x_i, b_i, c_i = xs[:, sl].float(), Bm[:, sl].float(), Cm[:, sl].float()
+        da_i, dt_i = dA[:, sl], dt[:, sl]
+        cum = torch.cumsum(da_i, dim=1)                       # (B,c,H)
+        # intra-chunk: y[s] = sum_{j<=s} exp(cum_s - cum_j) dt_j (C_s.B_j) x_j
+        seg = cum[:, :, None, :] - cum[:, None, :, :]         # (B,c,c,H)
+        # clamp masked entries BEFORE exp: exp(+large) -> inf
+        decay = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)),
+                            0.0)
+        cb = torch.einsum("bsn,bjn->bsj", c_i, b_i)
+        att = cb[..., None] * decay * dt_i[:, None, :, :]     # (B,c,c,H)
+        y = torch.einsum("bsjh,bjhp->bshp", att, x_i)
+        # contribution of carried state: y += C_s . state * exp(cum_s)
+        y = y + torch.einsum("bsn,bhpn,bsh->bshp", c_i, state, torch.exp(cum))
+        # new chunk state: exp(cum_end)*state + sum_j exp(cum_end-cum_j) dt_j B_j x_j^T
+        dec_end = torch.exp(cum[:, -1, None, :] - cum)        # (B,c,H)
+        sB = torch.einsum("bjh,bjn,bjhp->bhpn", dec_end * dt_i, b_i, x_i)
+        state = torch.exp(cum[:, -1])[:, :, None, None] * state + sB
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    y = y + xs.float() * params["D"].float()[None, None, :, None]
+    y = y.reshape(B, S, d_inner).to(dt_)
+    y = rms_norm(y * F.silu(z), params["norm"]["scale"], cfg.norm_eps)
+    out = y @ params["out_proj"].to(dt_)
+    if return_state:
+        d_conv = params["conv_w"].shape[0]
+        conv_state = F.pad(xbc_raw, (0, 0, d_conv - 1, 0))[:, -(d_conv - 1):]
+        return out, {"ssd": state.float(), "conv": conv_state}
+    return out
+
+
+def init_mamba_cache(cfg, spec, batch, dtype, device=None):
+    d_inner, H, N = _dims(cfg, spec)
+    conv_ch = d_inner + 2 * N
+    return {
+        "ssd": torch.zeros((batch, H, spec.head_dim, N), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((batch, spec.d_conv - 1, conv_ch), dtype=dtype,
+                            device=device),
+    }
+
+
+def mamba_decode(params, x, cfg, spec, cache):
+    """One-step recurrence. x: (B,1,D)."""
+    B = x.shape[0]
+    d_inner, H, N = _dims(cfg, spec)
+    P = spec.head_dim
+    dt_ = x.dtype
+
+    z, xbc_raw, dt = _split_proj(params, x, cfg, spec)        # (B,1,*)
+    # conv over ring of last d_conv inputs
+    hist = torch.cat([cache["conv"], xbc_raw], dim=1)         # (B,d_conv,C)
+    w = params["conv_w"].to(dt_)
+    xbc = F.silu(torch.einsum("bkc,kc->bc", hist, w)
+                 + params["conv_b"].to(dt_))
+    new_conv = hist[:, 1:]
+
+    xh = xbc[:, :d_inner].reshape(B, H, P).float()
+    Bm = xbc[:, d_inner:d_inner + N].float()
+    Cm = xbc[:, d_inner + N:].float()
+    A = -torch.exp(params["A_log"].float())
+    dtv = softplus(dt[:, 0].float() + params["dt_bias"].float())
+    decay = torch.exp(dtv * A)                                # (B,H)
+    state = cache["ssd"] * decay[:, :, None, None] + torch.einsum(
+        "bh,bn,bhp->bhpn", dtv, Bm, xh)
+    y = torch.einsum("bn,bhpn->bhp", Cm, state)
+    y = y + xh * params["D"].float()[None, :, None]
+    y = y.reshape(B, 1, d_inner).to(dt_)
+    y = rms_norm(y * F.silu(z), params["norm"]["scale"], cfg.norm_eps)
+    out = y @ params["out_proj"].to(dt_)
+    return out, {"ssd": state, "conv": new_conv}

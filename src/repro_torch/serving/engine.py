@@ -1,8 +1,11 @@
 """Serving engine: continuous batching over a paged KV cache, with
 fork-based prefix sharing (the MITOSIS state-transfer path).
 
-Serves the attention architectures through a paged decode forward built
-from the same layer primitives as the model (models/layers.py).  The
+Serves the dense and MoE attention architectures through a paged decode
+forward built from the same layer primitives as the model
+(models/layers.py, models/moe.py); recurrent archs (Mamba2, xLSTM) decode
+through ``lm.decode_step``'s O(1) states instead, and the engine refuses
+them as the reference's does.  The
 decode attention runs through kernels/paged_attention (the CUDA kernel on
 the card, its plain version on the CPU), reading KV directly from the
 pool's frames tensor — children created by `fork_request` attend over the
@@ -21,6 +24,7 @@ from repro_torch.configs.base import ArchConfig, AttnSpec
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.models import moe as MOE
 from repro_torch.serving.kv_cache import PagedKV
 from repro_torch.serving.sampling import sample
 
@@ -48,10 +52,9 @@ class ServingEngine:
                  keep_logits: bool = False):
         self.cfg = cfg
         specs = [s for s in cfg.block_specs() if isinstance(s, AttnSpec)]
-        if len(specs) != cfg.num_layers or cfg.moe_experts:
-            raise NotImplementedError(
-                "the paged engine serves dense attention archs; MoE and "
-                "recurrent archs are not ported yet (ROADMAP queue A)")
+        if len(specs) != cfg.num_layers:
+            raise ValueError("paged engine supports attention archs; "
+                             "use the recurrent-state engine for SSM archs")
         self.specs = list(cfg.block_specs())
         self.params = params
         self.device = torch.device(device)
@@ -171,9 +174,12 @@ class ServingEngine:
             a = att.reshape(B, 1, cfg.num_heads, cfg.head_dim)
             y = torch.einsum("bshk,hkd->bsd", a, bp["attn"]["wo"].to(dt))
             h = h + y
-            if "mlp" in bp:
+            if "mlp" in bp or "moe" in bp:
                 hn2 = L.rms_norm(h, bp["norm2"]["scale"], cfg.norm_eps)
-                h = h + L.mlp(bp["mlp"], hn2, cfg.mlp_gated)
+                if "moe" in bp:
+                    h = h + MOE.moe_mlp(bp["moe"], hn2, cfg)
+                else:
+                    h = h + L.mlp(bp["mlp"], hn2, cfg.mlp_gated)
         h = L.rms_norm(h, self.params["final_norm"]["scale"], cfg.norm_eps)
         logits = L.output_logits(self.params["embed"], cfg, h)[:, 0]
         toks_new = sample(logits).tolist()     # greedy, as in the reference

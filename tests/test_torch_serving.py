@@ -180,11 +180,18 @@ def test_cow_write_after_fork_isolates():
 
 
 def test_unported_block_families_raise():
-    from repro_torch.configs.base import (ArchConfig, GroupSpec, MambaSpec)
-    cfg = ArchConfig(name="x", family="ssm", d_model=16, num_heads=2,
+    """Every block family of the reference is ported now; a spec of no
+    known family raises TypeError, as in the reference."""
+    @dataclasses.dataclass(frozen=True)
+    class ConvSpec:
+        kind: str = "conv"
+        shared: bool = False
+
+    from repro_torch.configs.base import ArchConfig, GroupSpec
+    cfg = ArchConfig(name="x", family="conv", d_model=16, num_heads=2,
                      num_kv_heads=2, head_dim=8, d_ff=0, vocab_size=32,
-                     groups=(GroupSpec(unit=(MambaSpec(),), repeat=1),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                     groups=(GroupSpec(unit=(ConvSpec(),), repeat=1),))
+    with pytest.raises(TypeError):
         lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
 

@@ -8,6 +8,7 @@ A scenario is a function ``scenario(P, params, pool)``: ``P`` is ``REF``
 micro-hello fp32 parameters (the reference's own, carried across with
 ``models/convert.py``), ``pool`` a key of ``POOLS``.  It returns a dict of
 plain values; ``run_both`` runs it once per package and returns both."""
+import dataclasses
 import hashlib
 import importlib.util
 from pathlib import Path
@@ -20,6 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro.core.prefetch as jprefetch  # noqa: E402
+from repro.configs.base import get_arch as jget_arch  # noqa: E402
+from repro.configs.base import reduce_for_smoke as jreduce  # noqa: E402
 import repro.placement as jplacement  # noqa: E402
 import repro.platform.coordinator as jcoord  # noqa: E402
 import repro.platform.straggler as jstraggler  # noqa: E402
@@ -37,6 +40,8 @@ import repro_torch.platform.coordinator as tcoord  # noqa: E402
 import repro_torch.platform.straggler as tstraggler  # noqa: E402
 import repro_torch.platform.workflow as tworkflow  # noqa: E402
 from repro_torch import _dtypes  # noqa: E402
+from repro_torch.configs.base import get_arch as tget_arch  # noqa: E402
+from repro_torch.configs.base import reduce_for_smoke as treduce  # noqa: E402
 from repro_torch import net as tnet  # noqa: E402
 from repro_torch.core.descriptor import flatten_with_names  # noqa: E402
 from repro_torch.core.instance import ModelInstance as TInstance  # noqa: E402
@@ -76,6 +81,30 @@ IMPL = {"jnp": "torch"}       # the reference's fused-XLA path <-> plain torch
 
 def node_kw(P, pool):
     return dict(POOLS[pool][0 if P is REF else 1])
+
+
+def every_kind(cfg):
+    """``cfg`` with each group's unit cut to one block of each kind, in
+    order (zamba2: a Mamba block and the shared attention; xlstm: an mLSTM
+    and the sLSTM): the smoke cut keeps a unit's first three blocks, which
+    for those two are all of one kind."""
+    return dataclasses.replace(cfg, groups=tuple(
+        dataclasses.replace(g, unit=tuple(dict.fromkeys(g.unit)))
+        for g in cfg.groups))
+
+
+def smoke_cfgs(name, kinds=False, **kw):
+    """(reference config, port config) of arch ``name`` at smoke size in
+    fp32, with the fields ``kw`` replaced; the two must be equal.  With
+    ``kinds`` the unit is first cut to one block of each kind
+    (``every_kind``)."""
+    cut = every_kind if kinds else (lambda cfg: cfg)
+    jc = dataclasses.replace(jreduce(cut(jget_arch(name))),
+                             compute_dtype="float32", **kw)
+    tc = dataclasses.replace(treduce(cut(tget_arch(name))),
+                             compute_dtype="float32", **kw)
+    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    return jc, tc
 
 
 def side_params(P, hello_params):
