@@ -70,13 +70,29 @@ Phases, each of which raises on failure (exit code 1, no result line):
    decode steps on seed and child: equal tokens and logits, bit for bit,
    decode close to prefill, the paged engine refusing them.  Each model
    resets the counts and prints a ``[smoke] models:`` line;
-8. print one JSON line with every kernel's numbers, the card line again,
+8. training (*train*), with TF32 still off: (a) gemma3-1b whole trains
+   4 steps of 4 x 2048 tokens through ``launch/train`` (2 microbatches,
+   full remat, the chunked window and global attention paths): every
+   loss finite, the last below the first; step time, tokens/s, peak
+   memory and the share of the fp32 peak are printed.  (b) gemma3-1b at
+   full width cut to one window and one global layer takes one step on
+   the card and one on the CPU from the same weights and tokens: loss and
+   gnorm within ``STEP_TOL``, params within the bound ``train_vs_cpu``
+   states.  (c) gemma3-1b takes 2 steps, then a joining worker
+   remote-forks its training state (params, Adam ``m`` and ``v``, ~12 GB;
+   registers ``step`` and ``count``) from the donor's device pool: bit
+   for bit, and step 3 on donor and joiner gives the same loss, bit for
+   bit.  (d) train-100m: 4 steps straight against 2, a checkpoint, a
+   restore and 2 more, within ``RESTART_TOL``; the checkpoint's bytes and
+   save and load times beside a fork of the same state.  The four copy
+   kernels must have launched, the three bulk ones by a bulk route;
+9. print one JSON line with every kernel's numbers, the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Launches made in phase 3 and in phase 4's checks are not in the counts:
 the counts are reset just before the serve run and read just after it.
-Phases 5, 6 and each model of 7 reset them before they start and print
-their own.
+Phases 5, 6, each model of 7 and phase 8 reset them before they start and
+print their own.
 """
 from __future__ import annotations
 
@@ -124,6 +140,13 @@ MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_LAYERS = 4
 RECURRENT_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
 DECODE_TOL = {"rtol": 2e-2, "atol": 5e-3}
+# phase 8: gemma3-1b trains whole; its card step against the CPU's (loss
+# and gnorm relative; the share of params further than 1e-5 relative, see
+# train_vs_cpu); a checkpoint restart of train-100m against 4 straight steps
+TRAIN_ARCH = "gemma3-1b"
+RESTART_ARCH = "train-100m"
+STEP_TOL = {"loss": 1e-5, "gnorm": 1e-4, "far_share": 1e-3}
+RESTART_TOL = 1e-5
 # Figure 20's replay (benchmarks/fig20_spikes.py), copied: 4 KiB pages,
 # 16 pages of state of which 5% are touched, 30 ms of execution, a 167 ms
 # coldstart, containers held for the trace's 60 s minute, 4 seed replicas
@@ -150,6 +173,11 @@ def card_line() -> str:
 def sync_dev(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def peak_bytes(torch, dev):
+    return (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1242,8 +1270,7 @@ def model_line(torch, dev, cfg, full, **fields) -> dict:
     line = {"arch": full.name, "layers": cfg.num_layers,
             "of_layers": full.num_layers, "d_model": cfg.d_model,
             "params": n, "param_gb": n * 4 / 1e9, **fields,
-            "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
-                                  if dev.type == "cuda" else None),
+            "peak_device_bytes": peak_bytes(torch, dev),
             "launches": launches, "pages_moved": pages, "routes": routes}
     print("[smoke] models: " + json.dumps(line))
     return line
@@ -1376,6 +1403,318 @@ def recurrent_model(torch, dev, arch, smoke=False) -> dict:
         engine_refused=refused)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training, and the elastic join by remote fork
+# ---------------------------------------------------------------------------
+
+
+def train_argv(smoke: bool):
+    """(a)'s ``launch/train`` arguments: gemma3-1b whole, 4 steps of 4 x
+    2048 tokens in 2 microbatches (q_chunk 512: the chunked window and
+    global paths), full remat; at smoke size 4 x 64 tokens."""
+    batch, seq = (4, 64) if smoke else (4, 2048)
+    return (["--arch", TRAIN_ARCH] + (["--smoke"] if smoke else [])
+            + ["--steps", "4", "--batch", str(batch), "--seq", str(seq),
+               "--microbatches", "2", "--remat", "full", "--warmup", "1",
+               "--lr", "1e-3", "--log-every", "1"])
+
+
+def reset_peak(torch, dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def train_full(torch, dev, smoke=False) -> dict:
+    """Phase 8(a): ``launch/train.run``; every loss finite and the last
+    below the first.  Steps 2-4 give the step time, tokens/s and the share
+    of the card's fp32 peak that ``model_flops`` (6 N per token, head
+    included) takes."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+    from repro_torch.models import flops
+    reset_peak(torch, dev)
+    argv = train_argv(smoke)
+    run = train.run(argv + ["--device", str(dev)])
+    losses = run.losses
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} not finite and falling")
+    batch, seq = int(argv[argv.index("--batch") + 1]), int(
+        argv[argv.index("--seq") + 1])
+    step_s = statistics.mean(run.step_s[1:])
+    fl = flops.model_flops(run.cfg, ShapeConfig("train", seq, batch, "train"))
+    line = {"arch": run.cfg.name, "params": flops.param_counts(run.cfg)[0],
+            "batch": batch, "seq": seq, "losses": losses,
+            "step_s": run.step_s, "first_step_s": run.step_s[0],
+            "mean_step_s_2_4": step_s, "tokens_per_s": batch * seq / step_s,
+            "model_flops_per_step": fl,
+            "fp32_peak_share": fl / step_s / FP32_FLOPS_PER_S,
+            "peak_device_bytes": peak_bytes(torch, dev)}
+    print("[smoke] train (a): " + json.dumps(line))
+    return line
+
+
+def two_layer_cfg(smoke: bool):
+    """(b)'s config: gemma3-1b at full width (smoke: its smoke cut) with
+    one window layer and one global layer."""
+    from repro_torch.configs.base import GroupSpec, get_arch, reduce_for_smoke
+    full = get_arch(TRAIN_ARCH)
+    local, glob = full.groups[0].unit[0], full.groups[0].unit[-1]
+    cfg = dataclasses.replace(full, name=f"{TRAIN_ARCH}-2of{full.num_layers}",
+                              groups=(GroupSpec(unit=(local, glob),
+                                                repeat=1),))
+    if smoke:
+        cfg = reduce_for_smoke(cfg)
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+def train_vs_cpu(torch, dev, smoke=False) -> dict:
+    """Phase 8(b): one ``make_train_step`` step of ``two_layer_cfg`` on the
+    card and on the CPU from the same seeded weights and tokens (batch 1,
+    seq 1024, q_chunk 256).  Loss within ``STEP_TOL["loss"]`` relative,
+    gnorm within ``STEP_TOL["gnorm"]``.  Params: the first AdamW step
+    moves each by ``lr * g s / (|g| s + eps)``, +-lr for most gradients,
+    but a gradient at noise level (on the order of eps / s) can come out
+    anywhere in between, or of the other sign, on the two devices; so
+    every param must be within ``2 lr`` of the CPU's and fewer than
+    ``STEP_TOL["far_share"]`` of them further than 1e-5 relative."""
+    from repro_torch.core.descriptor import flatten_with_names
+    from repro_torch.models import lm
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.optimizer import init_opt_state, tree_map
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    cfg = two_layer_cfg(smoke)
+    seq, q_chunk = (64, 16) if smoke else (1024, 256)
+    cpu = torch.device("cpu")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), cpu)
+    tok, lab = (torch.from_numpy(a) for a in TokenStream(
+        cfg.vocab_size, 1, seq, seed=0).batch_at(0))
+    tcfg = TrainConfig(microbatches=1, q_chunk=q_chunk, xent_chunk=256,
+                       warmup=0, peak_lr=1e-3, remat="none")
+    step = make_train_step(cfg, tcfg)
+    runs = []
+    for where in (dev, cpu):
+        p = tree_map(lambda t: t.to(where, copy=True), params)
+        t0 = time.perf_counter()
+        p, _, m = step(p, init_opt_state(p), tok.to(where), lab.to(where))
+        sync_dev(torch, where)
+        runs.append((p, {k: float(v) for k, v in m.items()},
+                     time.perf_counter() - t0))
+        del p
+    (pd, md, card_s), (pc, mc, cpu_s) = runs
+    loss_err = abs(md["loss"] - mc["loss"]) / mc["loss"]
+    gnorm_err = abs(md["gnorm"] - mc["gnorm"]) / mc["gnorm"]
+    max_diff, far, n = 0.0, 0, 0
+    for a, b in zip(flatten_with_names(pd)[2], flatten_with_names(pc)[2]):
+        d = (a.cpu() - b).abs()
+        max_diff = max(max_diff, float(d.max()))
+        far += int((d > 1e-5 * b.abs() + 1e-7).sum())
+        n += d.numel()
+    lr = mc["lr"]
+    line = {"arch": cfg.name, "seq": seq, "q_chunk": q_chunk,
+            "card_s": card_s, "cpu_s": cpu_s,
+            "loss": md["loss"], "cpu_loss": mc["loss"],
+            "loss_rel_err": loss_err, "gnorm": md["gnorm"],
+            "cpu_gnorm": mc["gnorm"], "gnorm_rel_err": gnorm_err,
+            "params_max_abs_diff": max_diff, "params_bound": 2 * lr,
+            "params_far_share": far / n, "tol": STEP_TOL}
+    print("[smoke] train (b): " + json.dumps(line))
+    if (loss_err > STEP_TOL["loss"] or gnorm_err > STEP_TOL["gnorm"]
+            or max_diff > 2 * lr + 1e-6 or far / n > STEP_TOL["far_share"]):
+        raise AssertionError(f"train (b): the card's step differs from the "
+                             f"CPU's past {STEP_TOL}")
+    return line
+
+
+def fork_state(torch, dev, arch, state, registers) -> dict:
+    """Pack ``state`` with ``registers`` on a donor node (device pools,
+    frames reserved), fork it to a joiner (lazy, prefetch 1) and
+    materialize it there: every leaf and register must equal the
+    donor's.  Returns the joiner's tree, its registers and the fork's
+    numbers (wall seconds from ``resume_on`` to materialized, synced)."""
+    from repro_torch.core.instance import ModelInstance
+    from repro_torch.fork import ForkPolicy
+    from repro_torch.memory.paging import num_pages
+    from repro_torch.memory.pool import PAGE_ELEMS
+    from repro_torch.net import Network
+    from repro_torch.platform.node import NodeRuntime
+    leaves = [t for _, t in flat_leaves(state)]
+    frames = sum(num_pages(t.numel(), PAGE_ELEMS) for t in leaves)
+    net = Network()
+    donor, joiner = (NodeRuntime(n, net, cache_enabled=True,
+                                 device_pool=True, device=dev,
+                                 pool_frames=frames)
+                     for n in ("donor", "joiner"))
+    inst = ModelInstance.create(donor, arch, state, registers=registers)
+    handle = donor.prepare_fork(inst)
+    sync_dev(torch, dev)
+    t0 = time.perf_counter()
+    child = handle.resume_on(joiner, ForkPolicy(lazy=True, prefetch=1))
+    got = child.materialize_pytree()
+    sync_dev(torch, dev)
+    wall = time.perf_counter() - t0
+    same_leaves(torch, got, state, f"{arch} joiner")
+    if child.registers != registers:
+        raise AssertionError(f"{arch} joiner: registers {child.registers} "
+                             f"!= {registers}")
+    return got, dict(child.registers), {
+        "fork_wall_s": wall, "pages_rdma": child.stats["pages_rdma"],
+        "sim_time_s": net.sim_time,
+        "state_bytes": sum(t.numel() * t.element_size() for t in leaves),
+        "descriptor_bytes": len(donor.seeds[handle.handler_id].blob)}
+
+
+def step_tokens(torch, stream, step, dev):
+    return [torch.from_numpy(a).to(dev) for a in stream.batch_at(step)]
+
+
+def train_fork(torch, dev, smoke=False) -> dict:
+    """Phase 8(c): gemma3-1b whole takes 2 steps (batch 2 x 1024), then a
+    joining worker remote-forks its training state -- params, Adam ``m``
+    and ``v``, registers ``step`` and ``count`` -- instead of reading a
+    checkpoint (``examples/train_elastic.py``'s phase 2, on one card).
+    The forked state must equal the donor's bit for bit; then both take
+    step 3 on the same tokens: equal losses, bit for bit (a forward pass
+    on identical state), and equal params, except that the token
+    embedding's gradient gathers rows with atomics on the card, so it
+    may differ at rounding level and its params by up to ``2 lr`` (the
+    normalized step of a gradient at noise level; see ``train_vs_cpu``)."""
+    from repro_torch.configs.base import get_arch, reduce_for_smoke
+    from repro_torch.models import lm
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    cfg = get_arch(TRAIN_ARCH)
+    if smoke:
+        cfg = reduce_for_smoke(cfg)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    batch, seq, q_chunk = (2, 64, 16) if smoke else (2, 1024, 256)
+    reset_peak(torch, dev)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, TrainConfig(
+        microbatches=1, q_chunk=q_chunk, xent_chunk=256, warmup=1,
+        peak_lr=1e-3, remat="full"))
+    stream = TokenStream(cfg.vocab_size, batch, seq, seed=1)
+    for s in range(2):
+        params, opt, m = step(params, opt, *step_tokens(torch, stream, s,
+                                                        dev))
+    del m
+    gc.collect()                      # the trainer's gradients and graph
+    state = {"params": params, "opt_m": opt["m"], "opt_v": opt["v"]}
+    got, regs, fork = fork_state(torch, dev, cfg.name, state,
+                                 {"step": 2, "count": int(opt["count"])})
+    fork_peak = peak_bytes(torch, dev)
+    gc.collect()                      # the pools
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    jparams = got["params"]
+    jopt = {"m": got["opt_m"], "v": got["opt_v"],
+            "count": torch.tensor(regs["count"], dtype=torch.int32,
+                                  device=dev)}
+    tok, lab = step_tokens(torch, stream, regs["step"], dev)
+    params, opt, m = step(params, opt, tok, lab)
+    jparams, jopt, jm = step(jparams, jopt, tok, lab)
+    if not torch.equal(m["loss"], jm["loss"]):
+        raise AssertionError(f"train (c): step 3's loss {float(m['loss'])} "
+                             f"on the donor != {float(jm['loss'])} on the "
+                             f"joiner")
+    lr = float(m["lr"])
+    differ, max_diff = [], 0.0
+    for (name, a), (_, b) in zip(flat_leaves(params), flat_leaves(jparams)):
+        if not torch.equal(a, b):
+            differ.append(name)
+            max_diff = max(max_diff, float((a - b).abs().max()))
+    if any(n != "/embed/tok" for n in differ) or max_diff > 2 * lr + 1e-6:
+        raise AssertionError(f"train (c): step 3's params differ: {differ} "
+                             f"by up to {max_diff}")
+    line = {"arch": cfg.name, "batch": batch, "seq": seq, **fork,
+            "state_gb": fork["state_bytes"] / 1e9,
+            "step3_loss": float(m["loss"]), "step3_loss_bit_equal": True,
+            "step3_params_bit_equal": not differ,
+            "step3_params_differ": differ, "step3_params_max_diff": max_diff,
+            "fork_peak_device_bytes": fork_peak,
+            "peak_device_bytes": peak_bytes(torch, dev)}
+    print("[smoke] train (c): " + json.dumps(line))
+    return line
+
+
+def train_restart(torch, dev, smoke=False) -> dict:
+    """Phase 8(d): train-100m whole (batch 8 x 512), 4 steps straight
+    against 2 steps, ``save_checkpoint``, ``load_checkpoint`` and 2 more:
+    every loss within ``RESTART_TOL``.  The checkpoint's bytes and its
+    save and load times (device to file and back, synced) stand beside a
+    remote fork of the same state: the paper's C-R against fork."""
+    import tempfile
+    from repro_torch.configs.base import get_arch, reduce_for_smoke
+    from repro_torch.models import lm
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    cfg = get_arch(RESTART_ARCH)
+    if smoke:
+        cfg = reduce_for_smoke(cfg)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    batch, seq = (4, 32) if smoke else (8, 512)
+    step = make_train_step(cfg, TrainConfig(
+        microbatches=1, q_chunk=seq, xent_chunk=min(256, seq), warmup=0,
+        peak_lr=1e-3, remat="none"))
+    stream = TokenStream(cfg.vocab_size, batch, seq, seed=0)
+
+    def run(params, opt, lo, hi):
+        losses = []
+        for s in range(lo, hi):
+            params, opt, m = step(params, opt, *step_tokens(torch, stream, s,
+                                                            dev))
+            losses.append(float(m["loss"]))
+        return params, opt, losses
+
+    def fresh():
+        p = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+        return p, init_opt_state(p)
+
+    _, _, straight = run(*fresh(), 0, 4)
+    params, opt, first = run(*fresh(), 0, 2)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(d, 2, params, opt)
+        save_s = time.perf_counter() - t0
+        nbytes = ckpt.checkpoint_nbytes(d, 2)
+        t0 = time.perf_counter()
+        _, lp, lo, _ = ckpt.load_checkpoint(d, device=dev)
+        sync_dev(torch, dev)
+        load_s = time.perf_counter() - t0
+    same_leaves(torch, lp, params, f"{cfg.name} checkpoint")
+    _, _, resumed = run(lp, lo, 2, 4)
+    restarted = first + resumed
+    err = max(abs(a - b) for a, b in zip(straight, restarted))
+    if err > RESTART_TOL:
+        raise AssertionError(f"train (d): restart losses {restarted} differ "
+                             f"from {straight} by {err}")
+    _, _, fork = fork_state(torch, dev, cfg.name,
+                            {"params": params, "opt_m": opt["m"],
+                             "opt_v": opt["v"]},
+                            {"step": 2, "count": int(opt["count"])})
+    line = {"arch": cfg.name, "batch": batch, "seq": seq,
+            "losses_straight": straight, "losses_restarted": restarted,
+            "max_loss_diff": err, "tol": RESTART_TOL,
+            "checkpoint_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "fork": fork}
+    print("[smoke] train (d): " + json.dumps(line))
+    return line
+
+
+def train_phase(torch, dev, smoke=False) -> dict:
+    return {"a": train_full(torch, dev, smoke),
+            "b": train_vs_cpu(torch, dev, smoke),
+            "c": train_fork(torch, dev, smoke),
+            "d": train_restart(torch, dev, smoke)}
+
+
 def run_phase(torch, name, fn, required, bulk=()):
     """Reset the kernel counts, run ``fn()``, check and print the phase's
     launches, pages and routes; returns fn's summary and the counts."""
@@ -1467,6 +1806,9 @@ def main() -> int:
         _, models[arch] = run_phase(
             torch, "models", lambda a=arch: recurrent_model(torch, dev, a),
             required=COPY_KERNELS, bulk=BULK_KERNELS)
+    _, train_launches = run_phase(torch, "train",
+                                  lambda: train_phase(torch, dev),
+                                  required=COPY_KERNELS, bulk=BULK_KERNELS)
 
     kernels = []
     for name in KERNELS:
@@ -1476,6 +1818,7 @@ def main() -> int:
             "replaces": REPLACES[name], "design": DESIGN[name],
             "launches": launches[name], "pages": pages[name],
             "models_launches": {a: n[name] for a, n in models.items()},
+            "train_launches": train_launches[name],
             "routes": {k.split(".", 1)[1]: v for k, v in routes.items()
                        if k.split(".", 1)[0] == name},
             "max_abs_err": main_row["max_abs_err"],

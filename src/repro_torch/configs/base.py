@@ -177,11 +177,10 @@ def list_archs():
 
 
 def _load_all():
-    # the configurations of the families the port serves so far; the
-    # rest follow (ROADMAP queue A)
     from repro_torch.configs import (  # noqa: F401
-        gemma3_1b, zamba2_2_7b, kimi_k2_1t_a32b, moonshot_v1_16b_a3b,
-        xlstm_1_3b, micro,
+        stablelm_3b, gemma3_1b, granite_34b, qwen2_7b, zamba2_2_7b,
+        kimi_k2_1t_a32b, moonshot_v1_16b_a3b, musicgen_large, xlstm_1_3b,
+        chameleon_34b, micro,
     )
 
 

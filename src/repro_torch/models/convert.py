@@ -1,4 +1,4 @@
-"""Carry parameters across from the reference package.
+"""Carry parameters and optimizer state across from the reference package.
 
 ``params_from_numpy`` takes the reference's parameter tree with every
 leaf already mapped to a numpy array (``jax.tree.map(np.asarray, p)`` on
@@ -31,3 +31,13 @@ def params_from_numpy(tree, device="cuda"):
         return [params_from_numpy(v, device) for v in tree]
     return _leaf_to_tensor(tree, device)
 
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The reference's AdamW state (``{"m", "v", "count"}``, every leaf a
+    numpy array) -> the port's: ``m`` and ``v`` as ``params_from_numpy``
+    gives them, ``count`` an int32 scalar tensor."""
+    return {"m": params_from_numpy(state["m"], device),
+            "v": params_from_numpy(state["v"], device),
+            "count": torch.tensor(int(np.asarray(state["count"])),
+                                  dtype=torch.int32, device=device)}

@@ -1,6 +1,7 @@
 """Shared layers of the model families: norms, RoPE, GQA attention
-(prefill with its cache, one-token decode, global and sliding-window),
-MLPs, embedding and output head.
+(training with query chunks, prefill with its cache, one-token decode,
+global and sliding-window), MLPs, embedding, output head and chunked
+cross-entropy.
 
 Plain functions on tensors; parameters are nested dicts of tensors with
 the reference package's names and layouts (heads kept as separate axes:
@@ -14,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -167,6 +169,91 @@ def _sdpa(q, k, v, mask, scale):
     return out.reshape(B, Sq, H, hd)
 
 
+def attention_train(params, x, spec, cfg, positions, q_chunk=1024,
+                    exact_causal_slices=False):
+    """Causal (optionally sliding-window) attention for training.
+
+    Past ``q_chunk`` tokens the queries go in chunks of ``q_chunk``, so
+    the score working set is (B, H, chunk, Skv): global layers score each
+    chunk against every key (masked), window layers only against the
+    (window + chunk) band of keys they can see.  ``exact_causal_slices``
+    gives each chunk of a global layer only the keys up to its end, which
+    halves the scores' FLOPs.  S must be a multiple of ``q_chunk`` then,
+    as the reference's reshape requires."""
+    scale = cfg.head_dim ** -0.5
+    q, k, v = _project_qkv(params, x, spec, cfg, positions)
+    if x.shape[1] <= q_chunk:
+        out = _attend_whole(q, k, v, spec, positions, scale)
+    elif spec.window is not None:
+        out = _window_chunked(q, k, v, spec.window, q_chunk, scale)
+    elif exact_causal_slices:
+        out = _causal_unrolled(q, k, v, q_chunk, scale)
+    else:
+        out = _causal_chunked(q, k, v, q_chunk, scale)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+
+
+def _attend_whole(q, k, v, spec, positions, scale):
+    """Causal (and window) masked attention of every query in one pass."""
+    qpos = positions if positions.dim() > 1 else positions[None, :]
+    mask = qpos[:, :, None] >= qpos[:, None, :]
+    if spec.window:
+        mask &= qpos[:, :, None] - qpos[:, None, :] < spec.window
+    return _sdpa(q, k, v, mask, scale)
+
+
+def _num_chunks(S: int, c: int) -> int:
+    if S % c:
+        raise ValueError(f"seq {S} is not a multiple of q_chunk {c}")
+    return S // c
+
+
+def _causal_chunked(q, k, v, c, scale):
+    """Each query chunk against all S keys, masked causally."""
+    S = q.shape[1]
+    kpos = torch.arange(S, device=q.device)
+    outs = []
+    for i in range(_num_chunks(S, c)):
+        qpos = i * c + torch.arange(c, device=q.device)
+        mask = (qpos[:, None] >= kpos[None, :])[None]
+        outs.append(_sdpa(q[:, i * c:(i + 1) * c], k, v, mask, scale))
+    return torch.cat(outs, dim=1)
+
+
+def _causal_unrolled(q, k, v, c, scale):
+    """Each query chunk against the keys up to its own end."""
+    S = q.shape[1]
+    outs = []
+    for i in range(_num_chunks(S, c)):
+        kv_end = (i + 1) * c
+        qpos = i * c + torch.arange(c, device=q.device)
+        kpos = torch.arange(kv_end, device=q.device)
+        mask = (qpos[:, None] >= kpos[None, :])[None]
+        outs.append(_sdpa(q[:, i * c:kv_end], k[:, :kv_end], v[:, :kv_end],
+                          mask, scale))
+    return torch.cat(outs, dim=1)
+
+
+def _window_chunked(q, k, v, window, c, scale):
+    """Front-pad KV by ``window`` (rounded up to a chunk multiple) so each
+    query chunk reads a fixed (w + c) band; keys before position 0 and
+    past the window are masked."""
+    S = q.shape[1]
+    w = ((window + c - 1) // c) * c
+    kp = F.pad(k, (0, 0, 0, 0, w, 0))
+    vp = F.pad(v, (0, 0, 0, 0, w, 0))
+    outs = []
+    for i in range(_num_chunks(S, c)):
+        qpos = i * c + torch.arange(c, device=q.device)
+        kpos = i * c - w + torch.arange(w + c, device=q.device)
+        mask = ((qpos[:, None] >= kpos[None, :])
+                & (qpos[:, None] - kpos[None, :] < window)
+                & (kpos[None, :] >= 0))[None]
+        outs.append(_sdpa(q[:, i * c:(i + 1) * c], kp[:, i * c:i * c + w + c],
+                          vp[:, i * c:i * c + w + c], mask, scale))
+    return torch.cat(outs, dim=1)
+
+
 def attention_prefill(params, x, spec, cfg, positions, cache_len):
     """Causal (optionally sliding-window) attention over the prompt; also
     returns the (k, v) cache of size cache_len.
@@ -177,12 +264,7 @@ def attention_prefill(params, x, spec, cfg, positions, cache_len):
     one pass."""
     q, k, v = _project_qkv(params, x, spec, cfg, positions)
     B = x.shape[0]
-    scale = cfg.head_dim ** -0.5
-    qpos = positions if positions.dim() > 1 else positions[None, :]
-    mask = qpos[:, :, None] >= qpos[:, None, :]
-    if spec.window:
-        mask &= qpos[:, :, None] - qpos[:, None, :] < spec.window
-    out = _sdpa(q, k, v, mask, scale)
+    out = _attend_whole(q, k, v, spec, positions, cfg.head_dim ** -0.5)
 
     if spec.window is not None:
         w = min(spec.window, cache_len)
@@ -244,7 +326,7 @@ def init_attn_cache(cfg, spec, batch, cache_len, dtype, device=None):
 
 
 # ---------------------------------------------------------------------------
-# Embedding / head
+# Embedding / head / loss
 # ---------------------------------------------------------------------------
 
 
@@ -285,3 +367,28 @@ def output_logits(params, cfg, h):
         B, S = h.shape[:2]
         return logits.reshape(B, S, cfg.num_codebooks, cfg.vocab_size)
     return logits
+
+
+def chunked_xent(params, cfg, h, labels, chunk=256):
+    """Mean cross-entropy without materializing (B, S, V) logits: the
+    sequence goes in chunks, each checkpointed, so that the backward pass
+    recomputes one chunk's logits at a time."""
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    nc = S // chunk
+
+    def chunk_loss(hc, lc):
+        logits = output_logits(params, cfg, hc).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None].to(torch.long))[..., 0]
+        return torch.sum(lse - gold)
+
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(nc)]
+    if S > nc * chunk:
+        bounds.append((nc * chunk, S))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for a, b in bounds:
+        total = total + checkpoint(chunk_loss, h[:, a:b], labels[:, a:b],
+                                   use_reentrant=False)
+    denom = B * S * (cfg.num_codebooks if cfg.num_codebooks > 1 else 1)
+    return total / denom

@@ -7,20 +7,26 @@ over ``repeat`` (leading axis) and so are the caches; blocks marked
 ``shared=True`` (zamba2's attention) hold ONE param set at group level,
 while their caches are still per application (stacked).  The reference
 scans over the repeat axis; here a Python loop applies the repeats in
-order.  ``forward``, ``loss_fn`` and ``logits_fn`` come with the training
-slice (ROADMAP queue A).
+order.  In training each application of a unit is checkpointed by the
+remat policy (``_remat``).
 
 API:
   init_params(cfg, generator, device)
-  init_cache(cfg, batch, cache_len, dtype, device)
+  forward(params, cfg, tokens)                       -> hidden (B,S,D)
+  loss_fn(params, cfg, tokens, labels)               -> scalar
+  logits_fn(params, cfg, tokens)                     -> logits
   prefill(params, cfg, tokens, cache_len)            -> (last_logits, caches)
   decode_step(params, cfg, caches, token, pos)       -> (logits, caches)
+  init_cache(cfg, batch, cache_len, dtype, device)
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import _dtypes
 from repro_torch.configs.base import (ArchConfig, AttnSpec, MambaSpec,
@@ -86,21 +92,29 @@ def init_block(gen, cfg, spec, device=None, stack=None):
 
 
 def apply_block(params, h, cfg, spec, *, mode, positions=None, cache=None,
-                pos=None, cache_len=0):
-    """mode: prefill | decode. Returns (h, cache_out)."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be prefill or decode, got {mode!r}")
+                pos=None, cache_len=0, q_chunk=1024, exact_causal=False):
+    """mode: train | prefill | decode. Returns (h, cache_out_or_None)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got "
+                         f"{mode!r}")
     fam = _family(spec)
     hn = L.rms_norm(h, params["norm1"]["scale"], cfg.norm_eps)
+    cache_out = None
     if fam is not None:
         if mode == "decode":
             y, cache_out = fam.decode(params[fam.key], hn, cfg, spec, cache)
-        else:
+        elif mode == "prefill":
             y, cache_out = fam.forward(params[fam.key], hn, cfg, spec,
                                        return_state=True)
+        else:
+            y = fam.forward(params[fam.key], hn, cfg, spec)
         return h + y, cache_out
 
-    if mode == "prefill":
+    if mode == "train":
+        a = L.attention_train(params["attn"], hn, spec, cfg, positions,
+                              q_chunk=q_chunk,
+                              exact_causal_slices=exact_causal)
+    elif mode == "prefill":
         a, cache_out = L.attention_prefill(params["attn"], hn, spec, cfg,
                                            positions, cache_len)
     else:
@@ -182,23 +196,74 @@ def _index_tree(tree, r):
 
 
 # ---------------------------------------------------------------------------
-# prefill / decode
+# forward / loss / prefill / decode
 # ---------------------------------------------------------------------------
 
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of weight products with no
+    batch dimension (``aten.mm``, and ``aten.bmm`` over a batch of one,
+    which is what ``einsum`` makes of a projection) and recompute the
+    rest, batched products (attention scores, expert products) included:
+    the torch reading of jax's ``dots_with_no_batch_dims_saveable``."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` checkpointed by ``policy``: "none" keeps every activation,
+    "full" recomputes all of ``fn`` in the backward pass, "dots" keeps the
+    weight products' outputs and recomputes the rest.  All three give the
+    same numbers; only memory and time differ."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_weight_products))
+    raise ValueError(f"remat policy must be none, full or dots, got "
+                     f"{policy!r}")
+
+
+def _unit_params(g, gp, r):
+    """The params of each block of repeat ``r`` of group ``g``: a shared
+    block's one set, or the r-th slice of a stacked one."""
+    return [bp if getattr(spec, "shared", False) else _index_tree(bp, r)
+            for spec, bp in zip(g.unit, gp["blocks"])]
+
+
 def _run_groups(params, cfg, h, *, mode, positions=None, caches=None,
-                pos=None, cache_len=0):
+                pos=None, cache_len=0, q_chunk=1024, exact_causal=False,
+                remat="none"):
     """Apply every group's repeats in order; returns (h, new_caches) with
-    each block's cache stacked over its group's repeats."""
+    each block's cache stacked over its group's repeats, or (h, None) in
+    training, where each application of a unit is checkpointed by
+    ``remat``."""
+    if mode == "train":
+        for g, gp in zip(cfg.groups, params["groups"]):
+            for r in range(g.repeat):
+                def unit_fn(h, _g=g, _gp=gp, _r=r):
+                    for spec, bp in zip(_g.unit, _unit_params(_g, _gp, _r)):
+                        h, _ = apply_block(bp, h, cfg, spec, mode="train",
+                                           positions=positions,
+                                           q_chunk=q_chunk,
+                                           exact_causal=exact_causal)
+                    return h
+                h = _remat(unit_fn, remat)(h)
+        return h, None
+
     new_groups = []
     for gi, (g, gp) in enumerate(zip(cfg.groups, params["groups"])):
         gc = caches["groups"][gi] if caches is not None else None
         per_block = [[] for _ in g.unit]
         for r in range(g.repeat):
-            for bi, spec in enumerate(g.unit):
-                bp = gp["blocks"][bi]
-                if not getattr(spec, "shared", False):
-                    bp = _index_tree(bp, r)
+            for bi, (spec, bp) in enumerate(zip(g.unit,
+                                                _unit_params(g, gp, r))):
                 c = (_index_tree(gc["blocks"][bi], r) if gc is not None
                      else None)
                 h, co = apply_block(bp, h, cfg, spec, mode=mode,
@@ -209,6 +274,30 @@ def _run_groups(params, cfg, h, *, mode, positions=None, caches=None,
             {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
             for cs in per_block]})
     return h, {"groups": new_groups}
+
+
+def forward(params, cfg: ArchConfig, tokens, q_chunk=1024, exact_causal=False,
+            remat: Optional[str] = None):
+    """Final-norm hidden states (B, S, D) of the whole sequence; ``remat``
+    None takes the config's policy."""
+    dt = _dtypes.torch_dtype(cfg.compute_dtype)
+    h = L.embed_tokens(params["embed"], cfg, tokens, dt)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    h, _ = _run_groups(params, cfg, h, mode="train", positions=positions,
+                       q_chunk=q_chunk, exact_causal=exact_causal,
+                       remat=remat if remat is not None else cfg.remat_policy)
+    return L.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+
+
+def loss_fn(params, cfg: ArchConfig, tokens, labels, q_chunk=1024,
+            exact_causal=False, remat=None, xent_chunk=256):
+    h = forward(params, cfg, tokens, q_chunk, exact_causal, remat)
+    return L.chunked_xent(params["embed"], cfg, h, labels, chunk=xent_chunk)
+
+
+def logits_fn(params, cfg: ArchConfig, tokens, **kw):
+    h = forward(params, cfg, tokens, **kw)
+    return L.output_logits(params["embed"], cfg, h)
 
 
 def prefill(params, cfg: ArchConfig, tokens, cache_len):

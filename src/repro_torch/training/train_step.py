@@ -1,0 +1,103 @@
+"""The training step: microbatch gradient accumulation, remat policy from
+the arch config, optional gradient "compression" (bf16 accumulators, as
+the reference keeps for its bf16 cross-replica all-reduces), AdamW + clip
++ schedule.
+
+Gradients come from ``torch.autograd.grad`` over the params' leaves, in
+the reference's leaf order.  Microbatches are accumulated in a Python
+loop, each microbatch's gradient cast to ``grad_dtype`` and then added,
+as the reference's ``lax.scan`` does.  The step updates params and
+optimizer state in place and returns them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch import _dtypes
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.descriptor import flatten_with_names, unflatten_from_paths
+from repro_torch.models import lm
+from repro_torch.training.optimizer import AdamWConfig, adamw_update
+from repro_torch.training.schedule import warmup_cosine
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    peak_lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 10000
+    microbatches: int = 1
+    grad_dtype: str = "float32"      # "bfloat16" = compressed accumulators
+    remat: Optional[str] = None      # None -> cfg.remat_policy
+    q_chunk: int = 1024
+    exact_causal: bool = False
+    xent_chunk: int = 512
+    adamw: AdamWConfig = AdamWConfig()
+
+
+def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
+    """Returns train_step(params, opt_state, tokens, labels) -> (params,
+    opt_state, metrics). tokens/labels: (B, S) int (or (B, S, CB));
+    metrics holds float32 scalar tensors ``loss``, ``gnorm`` and ``lr``."""
+    gdt = _dtypes.torch_dtype(tcfg.grad_dtype)
+
+    def value_and_grad(paths, leaves, tok, lab):
+        xs = [p.detach().requires_grad_() for p in leaves]
+        loss = lm.loss_fn(unflatten_from_paths(paths, xs), cfg, tok, lab,
+                          q_chunk=tcfg.q_chunk,
+                          exact_causal=tcfg.exact_causal, remat=tcfg.remat,
+                          xent_chunk=tcfg.xent_chunk)
+        grads = torch.autograd.grad(loss, xs, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(x) if g is None else g
+                               for x, g in zip(xs, grads)]
+
+    def train_step(params, opt_state, tokens, labels):
+        mb = tcfg.microbatches
+        B = tokens.shape[0]
+        if B % mb:
+            raise ValueError(f"batch {B} is not a multiple of {mb} "
+                             f"microbatches")
+        _, paths, leaves = flatten_with_names(params)
+        if mb == 1:
+            loss, grads = value_and_grad(paths, leaves, tokens, labels)
+            grads = [g.to(gdt) for g in grads]
+        else:
+            split = lambda t: t.reshape((mb, B // mb) + tuple(t.shape[1:]))
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            grads = [torch.zeros(p.shape, dtype=gdt, device=p.device)
+                     for p in leaves]
+            for tok, lab in zip(split(tokens), split(labels)):
+                l, g = value_and_grad(paths, leaves, tok, lab)
+                with torch.no_grad():
+                    for acc, gi in zip(grads, g):
+                        acc.add_(gi.to(gdt))
+                del g
+                loss = loss + l
+            loss = loss / mb
+            grads = [g.div_(mb) for g in grads]
+
+        lr = warmup_cosine(opt_state["count"], peak_lr=tcfg.peak_lr,
+                           warmup=tcfg.warmup, total=tcfg.total_steps)
+        params, opt_state, gnorm = adamw_update(
+            params, unflatten_from_paths(paths, grads), opt_state, lr,
+            tcfg.adamw)
+        return params, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr}
+
+    return train_step
+
+
+def make_serve_prefill(cfg: ArchConfig, cache_len: int):
+    """prefill(params, tokens) -> (last_logits, caches).  The port's
+    prefill attends over the prompt in one pass (no query chunks)."""
+    def serve_prefill(params, tokens):
+        return lm.prefill(params, cfg, tokens, cache_len)
+    return serve_prefill
+
+
+def make_serve_decode(cfg: ArchConfig):
+    def serve_decode(params, caches, token, pos):
+        return lm.decode_step(params, cfg, caches, token, pos)
+    return serve_decode

@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports jax, jaxlib, ml_dtypes, msgpack or the reference
-package ``repro``, and importing the serve entry point loads none of
-them."""
+package ``repro``, and importing the serve and train entry points loads
+none of them."""
 import ast
 import os
 import subprocess
@@ -39,7 +39,8 @@ def test_no_banned_imports(path):
 
 
 def test_serve_import_loads_no_reference_or_jax():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.models.convert;"
+    code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train,"
+            " repro_torch.models.convert;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r});"
             "print(bad); sys.exit(1 if bad else 0)")
