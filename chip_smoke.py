@@ -86,13 +86,32 @@ Phases, each of which raises on failure (exit code 1, no result line):
    restore and 2 more, within ``RESTART_TOL``; the checkpoint's bytes and
    save and load times beside a fork of the same state.  The four copy
    kernels must have launched, the three bulk ones by a bulk route;
-9. print one JSON line with every kernel's numbers, the card line again,
+9. sharded data-parallel training (*distributed*): ``launch/elastic``
+   (``--check``) spawns 4 ranks, processes that share the card over gloo.
+   train-100m at full width, fp32, global batch 8 x 512, 12 steps: dp=2
+   (params and AdamW state sharded by ``param_pspec``) for steps 0-3, a
+   checkpoint and a "crash", a restart and steps 4-7, a worker's join by
+   remote fork, then dp=4 for steps 8-11.  (a) step 0 on 2 ranks against
+   one rank's step from the same weights and tokens: loss and gnorm
+   within ``STEP_TOL``, params within ``train_vs_cpu``'s bound, AdamW
+   ``m`` (the gradient) within the CPU parity tests' gradient tolerance;
+   (b) the restored state equal to the saved one, bit for bit, on every
+   rank; (c) the joiner's state and registers equal to the donor's, and
+   the fork's pages those of phase 8(d)'s fork of the same state; (d)
+   step 8 from the joiner's and from the donor's state: losses bit-equal,
+   params equal but for ``embed/tok`` within ``2 lr``; (e) every loss
+   finite, the last below the first; (f) the four copy kernels launched
+   (in rank 0, which forks), the three bulk ones by a bulk route.  One
+   ``[smoke] distributed:`` line: the collectives gloo takes on CUDA
+   tensors, step times, per-rank state bytes and peak memory, the
+   collectives' calls, bytes and seconds, the fork against the checkpoint;
+10. print one JSON line with every kernel's numbers, the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Launches made in phase 3 and in phase 4's checks are not in the counts:
 the counts are reset just before the serve run and read just after it.
-Phases 5, 6, each model of 7 and phase 8 reset them before they start and
-print their own.
+Phases 5, 6, each model of 7, 8 and 9 reset them before they start and
+print their own (phase 9 adds in those of rank 0's process).
 """
 from __future__ import annotations
 
@@ -147,6 +166,8 @@ TRAIN_ARCH = "gemma3-1b"
 RESTART_ARCH = "train-100m"
 STEP_TOL = {"loss": 1e-5, "gnorm": 1e-4, "far_share": 1e-3}
 RESTART_TOL = 1e-5
+# phase 9: train-100m whole on 2, then 4 ranks sharing the card over gloo
+DIST_ARGV = ["--steps", "12", "--batch", "8", "--backend", "gloo", "--check"]
 # Figure 20's replay (benchmarks/fig20_spikes.py), copied: 4 KiB pages,
 # 16 pages of state of which 5% are touched, 30 ms of execution, a 167 ms
 # coldstart, containers held for the trace's 60 s minute, 4 seed replicas
@@ -1528,41 +1549,19 @@ def train_vs_cpu(torch, dev, smoke=False) -> dict:
 
 
 def fork_state(torch, dev, arch, state, registers) -> dict:
-    """Pack ``state`` with ``registers`` on a donor node (device pools,
-    frames reserved), fork it to a joiner (lazy, prefetch 1) and
-    materialize it there: every leaf and register must equal the
-    donor's.  Returns the joiner's tree, its registers and the fork's
-    numbers (wall seconds from ``resume_on`` to materialized, synced)."""
-    from repro_torch.core.instance import ModelInstance
-    from repro_torch.fork import ForkPolicy
-    from repro_torch.memory.paging import num_pages
-    from repro_torch.memory.pool import PAGE_ELEMS
-    from repro_torch.net import Network
-    from repro_torch.platform.node import NodeRuntime
-    leaves = [t for _, t in flat_leaves(state)]
-    frames = sum(num_pages(t.numel(), PAGE_ELEMS) for t in leaves)
-    net = Network()
-    donor, joiner = (NodeRuntime(n, net, cache_enabled=True,
-                                 device_pool=True, device=dev,
-                                 pool_frames=frames)
-                     for n in ("donor", "joiner"))
-    inst = ModelInstance.create(donor, arch, state, registers=registers)
-    handle = donor.prepare_fork(inst)
-    sync_dev(torch, dev)
-    t0 = time.perf_counter()
-    child = handle.resume_on(joiner, ForkPolicy(lazy=True, prefetch=1))
-    got = child.materialize_pytree()
-    sync_dev(torch, dev)
-    wall = time.perf_counter() - t0
+    """``launch/elastic.fork_state``: pack ``state`` with ``registers`` on
+    a donor node (device pools, frames reserved), fork it to a joiner
+    (lazy, prefetch 1) and materialize it there; here every leaf and
+    register must also equal the donor's.  Returns the joiner's tree, its
+    registers and the fork's numbers (wall seconds from ``resume_on`` to
+    materialized, synced)."""
+    from repro_torch.launch import elastic
+    got, regs, fork = elastic.fork_state(arch, state, registers, dev)
     same_leaves(torch, got, state, f"{arch} joiner")
-    if child.registers != registers:
-        raise AssertionError(f"{arch} joiner: registers {child.registers} "
-                             f"!= {registers}")
-    return got, dict(child.registers), {
-        "fork_wall_s": wall, "pages_rdma": child.stats["pages_rdma"],
-        "sim_time_s": net.sim_time,
-        "state_bytes": sum(t.numel() * t.element_size() for t in leaves),
-        "descriptor_bytes": len(donor.seeds[handle.handler_id].blob)}
+    if regs != registers:
+        raise AssertionError(f"{arch} joiner: registers {regs} != "
+                             f"{registers}")
+    return got, regs, fork
 
 
 def step_tokens(torch, stream, step, dev):
@@ -1715,6 +1714,78 @@ def train_phase(torch, dev, smoke=False) -> dict:
             "d": train_restart(torch, dev, smoke)}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: sharded data-parallel training and the elastic join
+# ---------------------------------------------------------------------------
+
+
+def distributed_phase(torch, dev, smoke=False, fork_pages=None) -> dict:
+    """Phase 9: ``launch/elastic.run`` with ``--check`` on ``dev`` (4 ranks,
+    gloo; at smoke size the reference's smoke cut, 32 tokens a row), its
+    checks (a)-(e) held here; rank 0's kernel counts are added to this
+    process's, for ``run_phase``'s check (f).  ``fork_pages``: phase
+    8(d)'s pages for a fork of the same state."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import elastic
+    from repro_torch.models.flops import param_counts
+    argv = DIST_ARGV + ["--device", dev.type, "--seq", "32" if smoke
+                        else "512"] + ([] if smoke else ["--full-100m"])
+    t0 = time.perf_counter()
+    r = elastic.run(argv)
+    wall = time.perf_counter() - t0
+    dispatch.launches.update(r.kernels["launches"])
+    dispatch.pages_moved.update(r.kernels["pages"])
+    dispatch.routes.update(r.kernels["routes"])
+    fail = []
+    a = r.checks["a"]
+    if (a["loss_rel_err"] > STEP_TOL["loss"]
+            or a["gnorm_rel_err"] > STEP_TOL["gnorm"]
+            or a["params_max_abs_diff"] > 2 * a["lr"] + 1e-6
+            or a["params_far_share"] > STEP_TOL["far_share"]
+            or a["m_err_over_grad_tol"] > 1.0):
+        fail.append(f"(a) step 0 on 2 ranks against one: {a}")
+    for rank in r.ranks[:2]:
+        if not all(rank["checks"]["b"].values()):
+            fail.append(f"(b) rank {rank['rank']}: {rank['checks']['b']}")
+    c, fork = r.checks["c"], r.fork
+    if (not all(c.values()) or fork["pages_rdma"] != fork["frames"]
+            or fork_pages not in (None, fork["pages_rdma"])):
+        fail.append(f"(c) joiner {c}, pages {fork['pages_rdma']} of "
+                    f"{fork['frames']} (phase 8(d): {fork_pages})")
+    for rank in r.ranks:
+        d = rank["checks"]["d"]
+        if (not d["loss_bit_equal"]
+                or any(n != "embed/tok" for n in d["params_differ"])
+                or d["params_max_abs_diff"] > 2 * d["lr"] + 1e-6):
+            fail.append(f"(d) rank {rank['rank']}: {d}")
+    losses = r.losses
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail.append(f"(e) losses {losses}")
+    if r.allow_tf32:
+        fail.append("TF32 on in the ranks")
+    if fail:
+        raise AssertionError("distributed: " + "; ".join(fail))
+    median = lambda dp: statistics.median(
+        s for s, k in zip(r.step_s, r.dp) if k == dp)
+    line = {
+        "arch": r.cfg.name, "params": param_counts(r.cfg)[0],
+        "batch": int(argv[argv.index("--batch") + 1]),
+        "seq": int(argv[argv.index("--seq") + 1]), "steps": len(losses),
+        "note": "ranks are processes sharing one card; collectives are "
+                "gloo loopback through host memory, not NVLink",
+        "gloo_collectives": {"device": dev.type, **r.collectives},
+        "losses": losses,
+        "dp": r.dp, "step_s": r.step_s, "median_step_s_dp2": median(2),
+        "median_step_s_dp4": median(4), "wall_s": wall,
+        "ranks": [{"rank": k["rank"], "state_bytes": k["state_bytes"],
+                   "peak_device_bytes": k["peak_device_bytes"]}
+                  for k in r.ranks],
+        "full_state_bytes": r.full_state_bytes, "comm": r.comm,
+        "fork": fork, "checkpoint": r.checkpoint, "checks": r.checks}
+    print("[smoke] distributed: " + json.dumps(line))
+    return line
+
+
 def run_phase(torch, name, fn, required, bulk=()):
     """Reset the kernel counts, run ``fn()``, check and print the phase's
     launches, pages and routes; returns fn's summary and the counts."""
@@ -1806,9 +1877,14 @@ def main() -> int:
         _, models[arch] = run_phase(
             torch, "models", lambda a=arch: recurrent_model(torch, dev, a),
             required=COPY_KERNELS, bulk=BULK_KERNELS)
-    _, train_launches = run_phase(torch, "train",
-                                  lambda: train_phase(torch, dev),
-                                  required=COPY_KERNELS, bulk=BULK_KERNELS)
+    train, train_launches = run_phase(torch, "train",
+                                      lambda: train_phase(torch, dev),
+                                      required=COPY_KERNELS,
+                                      bulk=BULK_KERNELS)
+    _, dist_launches = run_phase(
+        torch, "distributed", lambda: distributed_phase(
+            torch, dev, fork_pages=train["d"]["fork"]["pages_rdma"]),
+        required=COPY_KERNELS, bulk=BULK_KERNELS)
 
     kernels = []
     for name in KERNELS:
@@ -1819,6 +1895,7 @@ def main() -> int:
             "launches": launches[name], "pages": pages[name],
             "models_launches": {a: n[name] for a, n in models.items()},
             "train_launches": train_launches[name],
+            "distributed_launches": dist_launches[name],
             "routes": {k.split(".", 1)[1]: v for k, v in routes.items()
                        if k.split(".", 1)[0] == name},
             "max_abs_err": main_row["max_abs_err"],

@@ -38,10 +38,10 @@ class TrainConfig:
     adamw: AdamWConfig = AdamWConfig()
 
 
-def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
-    """Returns train_step(params, opt_state, tokens, labels) -> (params,
-    opt_state, metrics). tokens/labels: (B, S) int (or (B, S, CB));
-    metrics holds float32 scalar tensors ``loss``, ``gnorm`` and ``lr``."""
+def make_loss_and_grads(cfg: ArchConfig, tcfg: TrainConfig):
+    """Returns loss_and_grads(paths, leaves, tokens, labels) -> (loss,
+    grads): the mean loss over ``tokens``' rows and each leaf's gradient
+    in ``grad_dtype``, accumulated over ``tcfg.microbatches``."""
     gdt = _dtypes.torch_dtype(tcfg.grad_dtype)
 
     def value_and_grad(paths, leaves, tok, lab):
@@ -54,31 +54,40 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
         return loss.detach(), [torch.zeros_like(x) if g is None else g
                                for x, g in zip(xs, grads)]
 
-    def train_step(params, opt_state, tokens, labels):
+    def loss_and_grads(paths, leaves, tokens, labels):
         mb = tcfg.microbatches
         B = tokens.shape[0]
         if B % mb:
             raise ValueError(f"batch {B} is not a multiple of {mb} "
                              f"microbatches")
-        _, paths, leaves = flatten_with_names(params)
         if mb == 1:
             loss, grads = value_and_grad(paths, leaves, tokens, labels)
-            grads = [g.to(gdt) for g in grads]
-        else:
-            split = lambda t: t.reshape((mb, B // mb) + tuple(t.shape[1:]))
-            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            grads = [torch.zeros(p.shape, dtype=gdt, device=p.device)
-                     for p in leaves]
-            for tok, lab in zip(split(tokens), split(labels)):
-                l, g = value_and_grad(paths, leaves, tok, lab)
-                with torch.no_grad():
-                    for acc, gi in zip(grads, g):
-                        acc.add_(gi.to(gdt))
-                del g
-                loss = loss + l
-            loss = loss / mb
-            grads = [g.div_(mb) for g in grads]
+            return loss, [g.to(gdt) for g in grads]
+        split = lambda t: t.reshape((mb, B // mb) + tuple(t.shape[1:]))
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        grads = [torch.zeros(p.shape, dtype=gdt, device=p.device)
+                 for p in leaves]
+        for tok, lab in zip(split(tokens), split(labels)):
+            l, g = value_and_grad(paths, leaves, tok, lab)
+            with torch.no_grad():
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi.to(gdt))
+            del g
+            loss = loss + l
+        return loss / mb, [g.div_(mb) for g in grads]
 
+    return loss_and_grads
+
+
+def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
+    """Returns train_step(params, opt_state, tokens, labels) -> (params,
+    opt_state, metrics). tokens/labels: (B, S) int (or (B, S, CB));
+    metrics holds float32 scalar tensors ``loss``, ``gnorm`` and ``lr``."""
+    loss_and_grads = make_loss_and_grads(cfg, tcfg)
+
+    def train_step(params, opt_state, tokens, labels):
+        _, paths, leaves = flatten_with_names(params)
+        loss, grads = loss_and_grads(paths, leaves, tokens, labels)
         lr = warmup_cosine(opt_state["count"], peak_lr=tcfg.peak_lr,
                            warmup=tcfg.warmup, total=tcfg.total_steps)
         params, opt_state, gnorm = adamw_update(

@@ -51,19 +51,20 @@ STEP = dict(microbatches=1, q_chunk=S, xent_chunk=XENT, warmup=0,
             peak_lr=1e-3, remat="none")
 
 
-def tokens(cfg, seed):
-    shape = (B, S) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1 else ())
+def tokens(cfg, seed, batch=B):
+    shape = (batch, S) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1
+                          else ())
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, shape).astype(np.int32)
 
 
-def make_case(arch):
+def make_case(arch, batch=B):
     """One arch: the port's config and params, tokens and labels, and the
     reference's hidden states, loss, gradients and one train step, from one
     jitted call."""
     jc, tc = smoke_cfgs(arch, kinds=arch in KINDS)
     jp = jlm.init_params(jax.random.PRNGKey(0), jc)
-    tok, lab = tokens(jc, 1), tokens(jc, 2)
+    tok, lab = tokens(jc, 1, batch), tokens(jc, 2, batch)
     jstep = jmake_train_step(jc, JTrainConfig(**STEP))
 
     def loss_and_hidden(p):          # lm.loss_fn, its hidden states kept
