@@ -91,10 +91,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    train-100m at full width, fp32, global batch 8 x 512, 12 steps: dp=2
    (params and AdamW state sharded by ``param_pspec``) for steps 0-3, a
    checkpoint and a "crash", a restart and steps 4-7, a worker's join by
-   remote fork, then dp=4 for steps 8-11.  (a) step 0 on 2 ranks against
-   one rank's step from the same weights and tokens: loss and gnorm
+   remote fork, then dp=4 for steps 8-11.  (a) steps 0 and 1 on 2 ranks,
+   each against one rank's step from the same state and tokens (lr is 0
+   at step 0, so step 1 holds the sharded AdamW update): loss and gnorm
    within ``STEP_TOL``, params within ``train_vs_cpu``'s bound, AdamW
-   ``m`` (the gradient) within the CPU parity tests' gradient tolerance;
+   ``m`` (its gradient part) within the CPU parity tests' gradient
+   tolerance;
    (b) the restored state equal to the saved one, bit for bit, on every
    rank; (c) the joiner's state and registers equal to the donor's, and
    the fork's pages those of phase 8(d)'s fork of the same state; (d)
@@ -1737,13 +1739,16 @@ def distributed_phase(torch, dev, smoke=False, fork_pages=None) -> dict:
     dispatch.pages_moved.update(r.kernels["pages"])
     dispatch.routes.update(r.kernels["routes"])
     fail = []
-    a = r.checks["a"]
-    if (a["loss_rel_err"] > STEP_TOL["loss"]
-            or a["gnorm_rel_err"] > STEP_TOL["gnorm"]
-            or a["params_max_abs_diff"] > 2 * a["lr"] + 1e-6
-            or a["params_far_share"] > STEP_TOL["far_share"]
-            or a["m_err_over_grad_tol"] > 1.0):
-        fail.append(f"(a) step 0 on 2 ranks against one: {a}")
+    for s, a in r.checks["a"].items():
+        if (a["loss_rel_err"] > STEP_TOL["loss"]
+                or a["gnorm_rel_err"] > STEP_TOL["gnorm"]
+                or a["lr"] != a["sharded_lr"]
+                or a["params_max_abs_diff"] > 2 * a["lr"] + 1e-6
+                or a["params_far_share"] > STEP_TOL["far_share"]
+                or a["m_err_over_grad_tol"] > 1.0):
+            fail.append(f"(a) {s} on 2 ranks against one: {a}")
+    if not r.checks["a"]["step1"]["lr"] > 0:
+        fail.append(f"(a) lr 0 at step 1: {r.checks['a']['step1']}")
     for rank in r.ranks[:2]:
         if not all(rank["checks"]["b"].values()):
             fail.append(f"(b) rank {rank['rank']}: {rank['checks']['b']}")

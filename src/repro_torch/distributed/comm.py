@@ -25,12 +25,15 @@ The same collectives run on every backend and device: gloo takes
 memory here (gloo itself copies CUDA tensors through the host).  Each call
 adds to ``stats[kind]``: its calls, the bytes of its full tensor on this
 rank (an all-gather's output, a reduce-scatter's input, the tensor of an
-all-reduce or a broadcast; of those, a ring moves ``(k-1)/k`` in and out
-of each of ``k`` ranks, twice for an all-reduce), and its wall seconds,
-synced on a CUDA device.
+all-reduce or a broadcast, an object broadcast's pickle; of those, a ring
+moves ``(k-1)/k`` in and out of each of ``k`` ranks, twice for an
+all-reduce), and its wall seconds, synced on a CUDA device.  Not counted:
+what creating a ``DeviceMesh``'s groups and ``probe`` exchange (set-up, a
+few small messages).
 """
 from __future__ import annotations
 
+import pickle
 import time
 from collections import defaultdict
 
@@ -142,7 +145,8 @@ def broadcast(x, mesh) -> torch.Tensor:
 
 def broadcast_object(obj, mesh):
     """A picklable ``obj`` from the mesh's first rank (see ``broadcast``)
-    to all its ranks; others pass anything and get the first rank's."""
+    to all its ranks; others pass anything and get the first rank's.  Its
+    bytes are the pickled object's."""
     for i in range(mesh.ndim):
         if mesh.size(i) > 1:
             group = mesh.get_group(i)
@@ -150,6 +154,7 @@ def broadcast_object(obj, mesh):
             _timed("broadcast", "cpu", lambda: dist.broadcast_object_list(
                 box, src=src, group=group), 0)
             obj = box[0]
+            stats["broadcast"]["bytes"] += len(pickle.dumps(obj))
     return obj
 
 

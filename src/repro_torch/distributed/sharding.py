@@ -74,12 +74,6 @@ class AxisEnv:
     # divides, replicate K/V when K doesn't — kills the scores partial-sum
     # all-reduce for MQA/GQA (granite/kimi/chameleon).
     attn_policy: str = "v1"
-    # MoE dispatch: "gspmd" = einsum/sort under GSPMD; "shardmap" = explicit
-    # expert-parallel dispatch with local sort + psum combine.
-    moe_impl: str = "gspmd"
-    # Mamba/SSD tensor parallelism: shard the inner (head) dim of the SSD
-    # block over `model` via activation constraints (zamba2).
-    mamba_tp: bool = False
 
     @property
     def axes(self) -> Dict[str, int]:
@@ -98,13 +92,12 @@ class AxisEnv:
         return math.prod(self.axes[a] for a in self.dp)
 
 
-def make_axis_env(mesh, fsdp_over_pod: bool = True, attn_policy: str = "v1",
-                  moe_impl: str = "gspmd", mamba_tp: bool = False) -> AxisEnv:
+def make_axis_env(mesh, fsdp_over_pod: bool = True,
+                  attn_policy: str = "v1") -> AxisEnv:
     names = tuple(mesh_axes(mesh))
     dp = tuple(a for a in ("pod", "data") if a in names)
     fsdp = dp if fsdp_over_pod else ("data",)
-    return AxisEnv(mesh=mesh, fsdp=fsdp, dp=dp, attn_policy=attn_policy,
-                   moe_impl=moe_impl, mamba_tp=mamba_tp)
+    return AxisEnv(mesh=mesh, fsdp=fsdp, dp=dp, attn_policy=attn_policy)
 
 
 def _div(n: int, k: int) -> bool:
@@ -188,7 +181,7 @@ def param_pspec(path: str, shape, cfg: ArchConfig, env: AxisEnv) -> P:
         if leaf == "wd":
             return lead([m, None, F]) if etp else lead([None, None, F])
 
-    # ---- Mamba2 (baseline: fsdp only; `mamba_tp` is the TP variant) ----
+    # ---- Mamba2 (baseline: fsdp only) ----
     if owner == "mamba":
         if leaf == "in_proj":
             return lead([F, None])

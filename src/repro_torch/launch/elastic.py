@@ -22,9 +22,10 @@ gloo; every rank on ``cuda:rank % device_count``, or the CPU):
    first.
 
 ``--check`` adds the checks ``chip_smoke.py``'s distributed phase reads:
-step 0 on 2 ranks against a single-rank step from the same weights and
-tokens; the restored state against the saved one, and the joiner's
-against the donor's, bit for bit; the first 4-rank step taken from the
+steps 0 and 1 on 2 ranks, each against a single-rank step from the same
+state and tokens (lr is 0 at step 0 under warmup, so step 1 holds the
+sharded AdamW update); the restored state against the saved one, and the
+joiner's against the donor's, bit for bit; the first 4-rank step taken from the
 joiner's state and, again, from the donor's; and which collectives the
 backend takes on the device's tensors.
 
@@ -59,7 +60,7 @@ from repro_torch.models import lm
 from repro_torch.models.flops import param_counts
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.data import TokenStream
-from repro_torch.training.optimizer import init_opt_state
+from repro_torch.training.optimizer import init_opt_state, tree_map
 from repro_torch.training.train_step import TrainConfig, make_train_step
 
 WORLD = 4
@@ -78,7 +79,11 @@ def parse_args(argv=None):
     ap.add_argument("--backend", default="gloo")
     ap.add_argument("--check", action="store_true",
                     help="also run the checks chip_smoke.py reads")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.check and args.steps < 6:
+        ap.error("--check takes steps 0 and 1 before the crash at steps/3: "
+                 "give --steps 6 or more")
+    return args
 
 
 def config(args):
@@ -156,6 +161,16 @@ def _state(params, opt):
     return {"params": params, "opt_m": opt["m"], "opt_v": opt["v"]}
 
 
+def _gathered(params, opt):
+    """Rank 0's own copy of the sharded params and AdamW state, full; None
+    on the other ranks.  Every rank of the mesh calls it."""
+    params, opt = gather_tree(params), gather_tree(opt)
+    if dist.get_rank() != 0:
+        return None
+    # a replicated leaf (and ``count``) comes back as the live tensor itself
+    return tree_map(torch.clone, params), tree_map(torch.clone, opt)
+
+
 def _train(rank, device, store, tmp, args) -> dict:
     cfg, tcfg = config(args)
     dispatch.reset_launches()
@@ -205,12 +220,22 @@ def _train(rank, device, store, tmp, args) -> dict:
             t.nbytes for t in flatten_with_names(full)[2])
         lo = 0
         if args.check:
-            params, opt, m = train(step, params, opt, 0, 1, 2)
-            a = _first_step_check(cfg, tcfg, full, params, opt, m, tokens(0))
-            if a is not None:
+            # (a) steps 0 (lr 0: the gradient, through AdamW's m) and 1 (the
+            # first update) against one rank's steps from the same state
+            before = (full, init_opt_state(full)) if rank == 0 else None
+            a = {}
+            for s in (0, 1):
+                if s:
+                    before = _gathered(params, opt)
+                    metered("check")
+                params, opt, m = train(step, params, opt, s, s + 1, 2)
+                a[f"step{s}"] = _single_rank_check(cfg, tcfg, before, params,
+                                                   opt, m, tokens(s))
+                metered("check")
+            if rank == 0:
                 out["checks"]["a"] = a
-            metered("check")
-            lo = 1
+            del before
+            lo = 2
         del full
         params, opt, _ = train(step, params, opt, lo, crash_at, 2)
         ckpt_dir = os.path.join(tmp, "ckpt")
@@ -363,20 +388,21 @@ def _bit_equal(a, b) -> bool:
         and torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
 
 
-def _first_step_check(cfg, tcfg, full, params, opt, m, tok_lab):
-    """Step 0 on the sharded ranks against one rank's step from the same
-    weights (``full``) and tokens: both ranks gather, rank 0 compares and
-    returns loss, gnorm, params and AdamW ``m`` (that is, the gradient)
-    apart; None on the others."""
+def _single_rank_check(cfg, tcfg, before, params, opt, m, tok_lab):
+    """A step just taken on the sharded ranks (``params``, ``opt``, its
+    metrics ``m``) against one rank's step from the same state ``before``
+    (rank 0's full params and AdamW state, None elsewhere; the step updates
+    it in place) and tokens: every rank gathers, rank 0 compares and
+    returns loss, gnorm, params and AdamW ``m`` apart; None on the
+    others."""
     got_p, got_m = gather_tree(params), gather_tree(opt["m"])
     if dist.get_rank() != 0:
         return None
-    one = make_train_step(cfg, tcfg)
-    rp, ro, rm = one(full, init_opt_state(full), *tok_lab)
+    rp, ro, rm = make_train_step(cfg, tcfg)(*before, *tok_lab)
     lr = float(rm["lr"])
     out = {"loss": float(m["loss"]), "single_loss": float(rm["loss"]),
            "gnorm": float(m["gnorm"]), "single_gnorm": float(rm["gnorm"]),
-           "lr": lr}
+           "lr": lr, "sharded_lr": float(m["lr"])}
     out["loss_rel_err"] = abs(out["loss"] - out["single_loss"]) / abs(
         out["single_loss"])
     out["gnorm_rel_err"] = abs(out["gnorm"] - out["single_gnorm"]) / abs(
@@ -388,7 +414,8 @@ def _first_step_check(cfg, tcfg, full, params, opt, m, tok_lab):
         far += int((d > 1e-5 * b.abs() + 1e-7).sum())
         n += d.numel()
     out["params_max_abs_diff"], out["params_far_share"] = diff, far / n
-    # m = (1 - b1) g s after one step: the gradient, to the clip scale
+    # m = b1 m0 + (1 - b1) g s, m0 the same on both: the gradient's part
+    # differs, to the clip scale
     ratio = 0.0
     for a, b in zip(flatten_with_names(got_m)[2],
                     flatten_with_names(ro["m"])[2]):

@@ -344,6 +344,10 @@ def test_chip_smoke_distributed_phase_rehearses_on_the_cpu():
                                         smoke=True)
     assert line["steps"] == 12 and line["dp"] == [2] * 8 + [4] * 4
     assert set(line["checks"]) == {"a", "b", "c", "d"}
+    a = line["checks"]["a"]
+    assert set(a) == {"step0", "step1"}
+    assert a["step0"]["lr"] == 0 < a["step1"]["lr"] == a["step1"]["sharded_lr"]
+    assert line["comm"]["join"]["broadcast"]["bytes"] > 0
     assert line["gloo_collectives"] == {
         "device": "cpu", "all_gather_into_tensor": True,
         "reduce_scatter_tensor": True, "all_reduce": True, "broadcast": True,
