@@ -107,12 +107,36 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ``[smoke] distributed:`` line: the collectives gloo takes on CUDA
    tensors, step times, per-rank state bytes and peak memory, the
    collectives' calls, bytes and seconds, the fork against the checkpoint;
-10. print one JSON line with every kernel's numbers, the card line again,
+10. tensor parallelism over ``model`` (*tensor_parallel*):
+   ``launch/tensor_parallel`` spawns 4 ranks sharing the card over gloo,
+   laid out as data=2 x model=2.  (a) gemma3-1b whole, fp32, 2 steps of 4
+   x 1024 tokens (2 microbatches, full remat) under ``attn_policy`` "v1"
+   (head_dim split: gemma has one KV head) and "qtp" (Q heads split, K/V
+   whole), each step against rank 0's single-rank step: loss and gnorm
+   within ``STEP_TOL``; after step 1 (params equal at step 0, lr 0),
+   params within ``2 lr`` and the far share, AdamW ``m`` within the
+   gradient tolerance; (b) the same params through the
+   sharded prefill (caches laid out by ``cache_pspec``) and 8 greedy
+   decode steps, batch 2, a 64-token prompt: logits within ``LOGIT_TOL``
+   of rank 0's ``lm.prefill`` / ``lm.decode_step`` and equal tokens; (c)
+   one moonshot MoE layer at full width, 2 x 512 tokens per data shard,
+   experts split over ``model``, under ``moe_impl`` "shardmap" and
+   "gspmd" at capacity factors 1.25 and 1.0 (where tokens must drop):
+   output and gradients within ``TP_TOL`` of the largest magnitude of one
+   rank's ``moe_mlp`` on each data shard / on the whole batch; (d) one
+   zamba2 Mamba layer at full width with ``mamba_tp``: output, final
+   state and gradients likewise.  One ``[smoke] tensor_parallel:`` line
+   per case (wall times, per-rank state bytes and peak memory, rank 0's
+   collectives by kind, errors beside their tolerances) and one line of
+   the collectives gloo takes on the data and model groups.  No kernel is
+   on this path (the step attends densely, as the reference does): every
+   rank's launches are added up and must be 0;
+11. print one JSON line with every kernel's numbers, the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Launches made in phase 3 and in phase 4's checks are not in the counts:
 the counts are reset just before the serve run and read just after it.
-Phases 5, 6, each model of 7, 8 and 9 reset them before they start and
+Phases 5, 6, each model of 7, 8, 9 and 10 reset them before they start and
 print their own (phase 9 adds in those of rank 0's process).
 """
 from __future__ import annotations
@@ -170,6 +194,9 @@ STEP_TOL = {"loss": 1e-5, "gnorm": 1e-4, "far_share": 1e-3}
 RESTART_TOL = 1e-5
 # phase 9: train-100m whole on 2, then 4 ranks sharing the card over gloo
 DIST_ARGV = ["--steps", "12", "--batch", "8", "--backend", "gloo", "--check"]
+# phase 10: a sharded layer's outputs and gradients against one rank's,
+# relative to the largest magnitude of each (fp32; summation order)
+TP_TOL = 1e-4
 # Figure 20's replay (benchmarks/fig20_spikes.py), copied: 4 KiB pages,
 # 16 pages of state of which 5% are touched, 30 ms of execution, a 167 ms
 # coldstart, containers held for the trace's 60 s minute, 4 seed replicas
@@ -1791,6 +1818,80 @@ def distributed_phase(torch, dev, smoke=False, fork_pages=None) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 10: tensor parallelism over model
+# ---------------------------------------------------------------------------
+
+
+def tensor_parallel_phase(torch, dev, smoke=False) -> list:
+    """Phase 10: ``launch/tensor_parallel.run`` on ``dev`` (4 ranks, gloo,
+    data=2 x model=2; at smoke size the smoke configs) and its checks;
+    every rank's kernel counts are added to this process's, for
+    ``run_phase``, and must be 0: no kernel is on this path.  Prints one
+    line per case and returns the cases."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import tensor_parallel
+    t0 = time.perf_counter()
+    r = tensor_parallel.run(["--device", dev.type]
+                            + (["--smoke"] if smoke else []))
+    wall = time.perf_counter() - t0
+    fail = []
+    for k in r.kernels:
+        dispatch.launches.update(k["launches"])
+        dispatch.pages_moved.update(k["pages"])
+        dispatch.routes.update(k["routes"])
+    if any(dispatch.launches.values()):
+        fail.append(f"kernels launched on the ranks: "
+                    f"{dict(dispatch.launches)}")
+    for c in r.cases:
+        kind = c["case"].split(":")[0]
+        if kind == "a":
+            c["tol"] = {"loss_rel_err": STEP_TOL["loss"],
+                        "gnorm_rel_err": STEP_TOL["gnorm"],
+                        "params_max_abs_diff": "2 lr + 1e-6",
+                        "params_far_share": STEP_TOL["far_share"],
+                        "m_err_over_grad_tol": 1.0}
+            for s, a in enumerate(c["steps"]):
+                if (a["loss_rel_err"] > STEP_TOL["loss"]
+                        or a["gnorm_rel_err"] > STEP_TOL["gnorm"]
+                        or a["lr"] != a["single_lr"]):
+                    fail.append(f"{c['case']} step {s}: {a}")
+            a = c["steps"][1]               # the state, after step 1 only
+            if (a["params_max_abs_diff"] > 2 * a["lr"] + 1e-6
+                    or a["params_far_share"] > STEP_TOL["far_share"]
+                    or a["m_err_over_grad_tol"] > 1.0):
+                fail.append(f"{c['case']} state after step 1: {a}")
+            if not a["lr"] > 0:
+                fail.append(f"{c['case']}: lr 0 at step 1")
+        elif kind == "b":
+            c["tol"] = LOGIT_TOL
+            if (c["logits_max_abs_err"] > LOGIT_TOL
+                    or not c["tokens_equal"]):
+                fail.append(f"{c['case']}: {c}")
+        else:
+            for key, (err, scale, _) in c["errors"].items():
+                c["errors"][key].append(TP_TOL * scale)
+                if not err <= TP_TOL * scale:
+                    fail.append(f"{c['case']} {key}: {err} > {TP_TOL} x "
+                                f"{scale}")
+            if kind == "c" and c["factor"] == 1.0 and not c["dropped"] > 0:
+                fail.append(f"{c['case']}: no token dropped at factor 1.0")
+    print("[smoke] tensor_parallel collectives gloo takes, by group: "
+          + json.dumps({"device": dev.type, **r.collectives}))
+    for c in r.cases:
+        ranks = [k[c["case"]] for k in r.ranks]
+        print("[smoke] tensor_parallel: " + json.dumps({
+            **c, "mesh": {"data": 2, "model": 2},
+            "state_bytes": [k["state_bytes"] for k in ranks],
+            "peak_device_bytes": [k["peak_device_bytes"] for k in ranks],
+            "peak_reserved_bytes": [k["peak_reserved_bytes"] for k in ranks],
+            "comm": ranks[0]["comm"]}))
+    if fail:
+        raise AssertionError("tensor_parallel: " + "; ".join(fail))
+    print(f"[smoke] tensor_parallel: {len(r.cases)} cases in {wall:.1f} s")
+    return r.cases
+
+
 def run_phase(torch, name, fn, required, bulk=()):
     """Reset the kernel counts, run ``fn()``, check and print the phase's
     launches, pages and routes; returns fn's summary and the counts."""
@@ -1890,6 +1991,9 @@ def main() -> int:
         torch, "distributed", lambda: distributed_phase(
             torch, dev, fork_pages=train["d"]["fork"]["pages_rdma"]),
         required=COPY_KERNELS, bulk=BULK_KERNELS)
+    _, tp_launches = run_phase(
+        torch, "tensor_parallel", lambda: tensor_parallel_phase(torch, dev),
+        required=())
 
     kernels = []
     for name in KERNELS:
@@ -1901,6 +2005,7 @@ def main() -> int:
             "models_launches": {a: n[name] for a, n in models.items()},
             "train_launches": train_launches[name],
             "distributed_launches": dist_launches[name],
+            "tensor_parallel_launches": tp_launches[name],
             "routes": {k.split(".", 1)[1]: v for k, v in routes.items()
                        if k.split(".", 1)[0] == name},
             "max_abs_err": main_row["max_abs_err"],

@@ -9,7 +9,8 @@ a sharding broadcasts them.  Here the sharded step calls them explicitly,
 through this module only:
 
 - ``gather``: a DTensor's shards into the full tensor (``all-gather``,
-  ``dist.all_gather_into_tensor`` once per sharded mesh dim);
+  ``dist.all_gather_into_tensor`` once per sharded mesh dim), or, for a
+  check, into the mesh's first rank only (``gather``, ``dist.gather``);
 - ``reduce_mean``: a full gradient into the param's shard, as a mean over
   the batch axes (``reduce-scatter``, ``dist.reduce_scatter_tensor``, on a
   mesh dim the param is sharded over; ``all-reduce``, ``dist.all_reduce``,
@@ -17,7 +18,17 @@ through this module only:
 - ``all_reduce_sum``: a scalar's sum over the mesh (``all-reduce``);
 - ``broadcast`` / ``broadcast_object``: a tensor or a picklable object from
   the mesh's first rank to the others (``device_put`` of a host array;
-  checkpoint loads and the join's layout).
+  checkpoint loads and the join's layout);
+- tensor parallelism over ``model`` (``tp``, the ``ctx.TP`` of the rank),
+  where GSPMD partitions the layers' einsums: Megatron's two operators
+  ``copy_to_model`` (identity forward, all-reduce of the gradient) and
+  ``reduce_from_model`` (all-reduce forward, identity backward), both
+  ``tp_all_reduce``; ``gather_model`` / ``slice_model`` along one dim
+  (``tp_all_gather`` forward or backward); ``all_reduce_max``
+  (``tp_all_reduce_max``, no gradient); ``sum_over_model``, a partial
+  gradient's sum in the step (``tp_grad_all_reduce``);
+- ``gather_counts``: the MoE's per-expert counts of every data shard of a
+  microbatch (``moe_counts``, an all-gather over the batch axes).
 
 The same collectives run on every backend and device: gloo takes
 ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` on CUDA tensors
@@ -68,10 +79,14 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-def gather(x) -> torch.Tensor:
+def gather(x, axes=None, first_only=False) -> torch.Tensor:
     """The full tensor of DTensor ``x``: its shards all-gathered, minor mesh
-    dim first, along the dims they shard.  Every rank of the mesh calls it;
-    a plain tensor comes back as it is."""
+    dim first, along the dims they shard; with ``axes`` (mesh axis names)
+    over those mesh dims only, the others' shards kept.  With
+    ``first_only`` the shards are gathered into the mesh's first rank
+    alone, which gets the full tensor, and every other rank gets None (a
+    check's read: a quarter of the bytes of an all-gather on 4 ranks).
+    Every rank of the mesh calls it; a plain tensor comes back as it is."""
     from torch.distributed.tensor import DTensor, Shard
     if not isinstance(x, DTensor):
         return x
@@ -79,15 +94,32 @@ def gather(x) -> torch.Tensor:
     for i in reversed(range(mesh.ndim)):
         p = x.placements[i]
         k = mesh.size(i)
-        if not isinstance(p, Shard) or k == 1:
+        if (not isinstance(p, Shard) or k == 1 or axes is not None
+                and mesh.mesh_dim_names[i] not in axes):
             continue
         part = out.contiguous()
+        if first_only:
+            out = _gather_first(part, mesh.get_group(i), k, p.dim)
+            if out is None:     # so is every rank of its later groups
+                return None
+            continue
         buf = torch.empty((k * part.shape[0],) + tuple(part.shape[1:]),
                           dtype=part.dtype, device=part.device)
         _timed("all_gather", out.device, lambda: dist.all_gather_into_tensor(
             buf, part, group=mesh.get_group(i)), _nbytes(buf))
         out = torch.cat(buf.chunk(k), dim=p.dim)
-    return out
+    return out if not first_only or is_first(mesh) else None
+
+
+def _gather_first(part, group, k, dim):
+    """The ``k`` ranks' ``part``s of ``group`` concatenated along ``dim``
+    on its first rank; None on the others."""
+    first = dist.get_rank(group) == 0
+    bufs = [torch.empty_like(part) for _ in range(k)] if first else None
+    _timed("gather", part.device, lambda: dist.gather(
+        part, bufs, dst=dist.get_global_rank(group, 0), group=group),
+        _nbytes(part) * k)
+    return torch.cat(bufs, dim=dim) if first else None
 
 
 def reduce_mean(full, placements, mesh, batch_dims) -> torch.Tensor:
@@ -158,6 +190,126 @@ def broadcast_object(obj, mesh):
     return obj
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism over ``model``
+# ---------------------------------------------------------------------------
+
+
+def _all_reduce(x, tp, kind="tp_all_reduce", op=None) -> torch.Tensor:
+    out = x.contiguous().clone()
+    kw = {} if op is None else {"op": op}
+    _timed(kind, out.device, lambda: dist.all_reduce(out, group=tp.group,
+                                                     **kw), _nbytes(out))
+    return out
+
+
+def _all_gather(x, tp, dim) -> torch.Tensor:
+    part = x.movedim(dim, 0).contiguous()
+    buf = torch.empty((tp.size * part.shape[0],) + tuple(part.shape[1:]),
+                      dtype=part.dtype, device=part.device)
+    _timed("tp_all_gather", part.device, lambda: dist.all_gather_into_tensor(
+        buf, part, group=tp.group), _nbytes(buf))
+    return buf.movedim(0, dim)
+
+
+def _own(x, tp, dim) -> torch.Tensor:
+    n = x.shape[dim] // tp.size
+    return x.narrow(dim, tp.rank * n, n)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.tp), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return _all_reduce(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return _all_gather(x, tp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(g, ctx.tp, ctx.dim).contiguous(), None, None
+
+
+class _SliceModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return _own(x, tp, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.tp, ctx.dim), None, None
+
+
+def copy_to_model(x, tp) -> torch.Tensor:
+    """Enter a region split over ``model``: ``x`` as it is; its gradient,
+    a part on each rank, summed over ``model``."""
+    return _CopyToModel.apply(x, tp)
+
+
+def reduce_from_model(x, tp) -> torch.Tensor:
+    """Leave a split region: the sum over ``model`` of each rank's part
+    ``x``; the gradient passes as it is."""
+    return _ReduceFromModel.apply(x, tp)
+
+
+def gather_model(x, tp, dim) -> torch.Tensor:
+    """The ranks' parts of a tensor split along ``dim`` over ``model``,
+    concatenated in rank order; the gradient's own part comes back."""
+    return _GatherModel.apply(x, tp, dim % x.dim())
+
+
+def slice_model(x, tp, dim) -> torch.Tensor:
+    """This rank's part of ``x`` along ``dim`` (the inverse of
+    ``gather_model``): the gradient is gathered."""
+    return _SliceModel.apply(x, tp, dim % x.dim())
+
+
+def all_reduce_max(x, tp) -> torch.Tensor:
+    """The elementwise max over ``model`` (no gradient)."""
+    return _all_reduce(x.detach(), tp, "tp_all_reduce_max",
+                       dist.ReduceOp.MAX)
+
+
+def sum_over_model(g, tp) -> torch.Tensor:
+    """A partial gradient summed over ``model``."""
+    return _all_reduce(g, tp, "tp_grad_all_reduce")
+
+
+def gather_counts(counts, groups) -> torch.Tensor:
+    """Every data shard's ``counts`` (E,), stacked (n, E) in the global row
+    order: ``groups`` is ``ctx.batch_groups()``'s (group, size) per batch
+    axis, major first."""
+    out = counts[None]
+    for group, k in reversed(groups):
+        part = out.contiguous()
+        buf = torch.empty((k * part.shape[0],) + tuple(part.shape[1:]),
+                          dtype=part.dtype, device=part.device)
+        _timed("moe_counts", part.device, lambda: dist.all_gather_into_tensor(
+            buf, part, group=group), _nbytes(buf))
+        out = buf
+    return out
+
+
 def is_first(mesh) -> bool:
     """Whether this rank is the mesh's first (coordinate 0 on every dim)."""
     coord = mesh.get_coordinate()
@@ -183,6 +335,12 @@ def probe(group, device) -> dict:
             [torch.empty(4, device=device) for _ in range(k)], x, group=group),
         "reduce": lambda: dist.reduce(
             x.clone(), dst=dist.get_global_rank(group, 0), group=group),
+        "gather": lambda: dist.gather(
+            x, [torch.empty(4, device=device) for _ in range(k)]
+            if dist.get_rank(group) == 0 else None,
+            dst=dist.get_global_rank(group, 0), group=group),
+        "all_reduce_max": lambda: dist.all_reduce(
+            x.clone(), op=dist.ReduceOp.MAX, group=group),
     }
     out = {}
     for name, fn in calls.items():

@@ -74,6 +74,13 @@ class AxisEnv:
     # divides, replicate K/V when K doesn't — kills the scores partial-sum
     # all-reduce for MQA/GQA (granite/kimi/chameleon).
     attn_policy: str = "v1"
+    # MoE dispatch: "gspmd" = capacity and in-expert order over the whole
+    # microbatch; "shardmap" = each data shard routes its own tokens with
+    # a local sort and a local capacity (models/moe.py).
+    moe_impl: str = "gspmd"
+    # Mamba/SSD tensor parallelism: this rank computes its heads of the
+    # SSD block; the in/out projections stay laid out by fsdp only.
+    mamba_tp: bool = False
 
     @property
     def axes(self) -> Dict[str, int]:
@@ -93,11 +100,13 @@ class AxisEnv:
 
 
 def make_axis_env(mesh, fsdp_over_pod: bool = True,
-                  attn_policy: str = "v1") -> AxisEnv:
+                  attn_policy: str = "v1", moe_impl: str = "gspmd",
+                  mamba_tp: bool = False) -> AxisEnv:
     names = tuple(mesh_axes(mesh))
     dp = tuple(a for a in ("pod", "data") if a in names)
     fsdp = dp if fsdp_over_pod else ("data",)
-    return AxisEnv(mesh=mesh, fsdp=fsdp, dp=dp, attn_policy=attn_policy)
+    return AxisEnv(mesh=mesh, fsdp=fsdp, dp=dp, attn_policy=attn_policy,
+                   moe_impl=moe_impl, mamba_tp=mamba_tp)
 
 
 def _div(n: int, k: int) -> bool:
@@ -173,7 +182,7 @@ def param_pspec(path: str, shape, cfg: ArchConfig, env: AxisEnv) -> P:
 
     # ---- MoE ----
     if owner == "moe":
-        etp = _div(cfg.moe_experts, ms)
+        etp = moe_split(cfg, env)
         if leaf == "router":
             return lead([F, None])
         if leaf in ("wi", "wg"):
@@ -189,7 +198,8 @@ def param_pspec(path: str, shape, cfg: ArchConfig, env: AxisEnv) -> P:
             return lead([None, F])
         return P()
 
-    # ---- xLSTM ----
+    # ---- xLSTM (placed over model at rest, computed whole:
+    # ``whole_over_model``) ----
     if owner == "mlstm":
         if leaf == "w_up":
             return lead([F, m]) if _div(shape[-1], ms) else lead([F, None])
@@ -202,6 +212,74 @@ def param_pspec(path: str, shape, cfg: ArchConfig, env: AxisEnv) -> P:
         return P()
 
     return P()       # norms, biases, scalars
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: how each layer splits its work over ``model``
+# ---------------------------------------------------------------------------
+
+
+def attn_plan(cfg: ArchConfig, env: AxisEnv):
+    """How attention splits over ``model``, following ``param_pspec``:
+    "heads" (Q and K/V heads split), "hd" (head_dim split: partial-sum
+    scores), "qtp" (Q heads split, K/V replicated) or None (replicated)."""
+    H, K, hd, ms = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, env.msize
+    if ms == 1:
+        return None
+    if env.attn_policy == "qtp":
+        if not _div(H, ms):
+            return None
+        return "heads" if _div(K, ms) else "qtp"
+    if _div(H, ms) and _div(K, ms):
+        return "heads"
+    return "hd" if _div(hd, ms) else None
+
+
+def mamba_split(cfg: ArchConfig, spec, env: AxisEnv) -> bool:
+    """Whether a Mamba block computes its heads split over ``model``."""
+    heads = spec.expand * cfg.d_model // spec.head_dim
+    return env.mamba_tp and env.msize > 1 and _div(heads, env.msize)
+
+
+def moe_split(cfg: ArchConfig, env: AxisEnv) -> bool:
+    """Whether the MoE experts are placed over ``model`` (expert
+    parallelism): with ``model`` larger than 1, each rank computes its
+    ``E / msize`` experts."""
+    return _div(cfg.moe_experts, env.msize)
+
+
+def whole_over_model(path: str) -> bool:
+    """The mLSTM leaves, placed over ``model`` by ``param_pspec`` but
+    computed whole: the reference leaves their split to GSPMD, which this
+    port does not partition, so the step gathers them over ``model`` and
+    cuts their gradients back to the shard."""
+    return "mlstm" in path.split("/")
+
+
+def model_partial(path: str, shape, cfg: ArchConfig, env: AxisEnv) -> bool:
+    """Whether a leaf replicated over ``model`` is used inside a region
+    that is split over it, so that each rank's gradient of it is a part
+    and the sum over ``model`` is the whole: q/k norms where Q heads are
+    split, K/V projections under "qtp", the MoE router under expert
+    parallelism, every leaf of a split Mamba block.  It reads the same
+    plans the layers split by (``attn_plan``, ``moe_split``,
+    ``mamba_split``); a layer that splits by anything else must add its
+    rule here, or its replicated leaves' gradients come out as parts."""
+    if env.msize == 1 or env.model in [
+            a for e in param_pspec(path, shape, cfg, env)
+            for a in spec_axes(e)]:
+        return False
+    parts = path.split("/")
+    leaf = parts[-1]
+    owner = parts[-2] if len(parts) >= 2 else ""
+    if owner == "attn" or (len(parts) >= 3 and parts[-3] == "attn"):
+        return attn_plan(cfg, env) in ("heads", "qtp")
+    if owner == "moe":
+        return leaf == "router" and moe_split(cfg, env)
+    if "mamba" in parts:        # groups/<g>/blocks/<b>/mamba/...
+        spec = cfg.groups[int(parts[1])].unit[int(parts[3])]
+        return mamba_split(cfg, spec, env)
+    return False
 
 
 # ---------------------------------------------------------------------------

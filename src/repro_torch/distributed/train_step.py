@@ -1,28 +1,38 @@
-"""The sharded data-parallel training step, and the layout of its state.
+"""The sharded training step, the sharded prefill and decode, and the
+layout of their state.
 
 ``make_sharded_train_step(cfg, tcfg, env)`` is the counterpart of the
 reference's ``jax.jit(make_train_step(cfg, tcfg))`` with params and AdamW
 ``m``/``v`` sharded by ``sharding.param_pspec`` (ZeRO-3 over the fsdp
-axes) and the batch by ``sharding.batch_pspec``.  GSPMD derives the
-collectives from those shardings; here the step makes them explicitly,
-all through ``comm``:
+axes, tensor parallelism over ``model``) and the batch by
+``sharding.batch_pspec``.  GSPMD derives the collectives from those
+shardings; here the step makes them explicitly, all through ``comm``:
 
-1. take this rank's rows of the global batch (contiguous, as
-   ``batch_pspec`` splits them);
-2. all-gather every sharded param;
+1. take this rank's rows of the global batch: in each microbatch, its
+   data shard of the reference's microbatch (``batch_rows``);
+2. all-gather every param over the fsdp axes, leaving its ``model``
+   shard local (the mLSTM leaves, which the model computes whole, are
+   gathered over ``model`` too);
 3. run the single-device loss and gradient
-   (``training.train_step.make_loss_and_grads``) on the local rows;
-4. reduce-scatter each gradient to its param's placements, as a mean over
+   (``training.train_step.make_loss_and_grads``) on the local rows, with
+   the env installed (``ctx.use_env``): the layers split their work over
+   ``model`` (``models/layers.py``) and the MoE takes its capacity over
+   the whole microbatch;
+4. sum over ``model`` the gradients that are parts there
+   (``sharding.model_partial``), and cut a gathered mLSTM leaf's to its
+   shard;
+5. reduce-scatter each gradient to its param's placements, as a mean over
    the batch axes (an all-reduce for a leaf replicated over them);
-5. the global norm over the shards, one all-reduce
+6. the global norm over the shards, one all-reduce
    (``training.optimizer.global_norm``);
-6. AdamW on the local shards, in place.
+7. AdamW on the local shards, in place.
 
 The loss it reports is the mean over the batch axes of the ranks' losses.
 Params, ``m`` and ``v`` are DTensors built with ``DTensor.from_local``
 (no collective); ``count`` stays a plain int32 tensor, the same on every
-rank.  Tensor parallelism over ``model`` is not here yet: the mesh's
-model axis must have size 1.
+rank.  ``make_sharded_serve_prefill`` / ``make_sharded_serve_decode``
+are the reference's serve functions under the env: params laid out by
+``param_pspec``, caches by ``cache_pspec``, the batch over the data axes.
 """
 from __future__ import annotations
 
@@ -32,10 +42,13 @@ from torch.distributed.tensor import DTensor
 from repro_torch import _dtypes
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.descriptor import flatten_with_names, unflatten_from_paths
-from repro_torch.distributed import comm
-from repro_torch.distributed.sharding import (AxisEnv, batch_pspec,
-                                              local_shape, param_pspec,
-                                              placements, spec_axes)
+from repro_torch.distributed import comm, ctx
+from repro_torch.distributed.sharding import (P, AxisEnv, batch_pspec,
+                                              cache_pspec, local_shape,
+                                              model_partial, param_pspec,
+                                              placements, spec_axes,
+                                              whole_over_model)
+from repro_torch.models import lm
 from repro_torch.training.optimizer import adamw_update
 from repro_torch.training.schedule import warmup_cosine
 from repro_torch.training.train_step import TrainConfig, make_loss_and_grads
@@ -119,6 +132,64 @@ def local_nbytes(tree) -> int:
                for x in flatten_with_names(tree)[2])
 
 
+def batch_rows(t, microbatches: int, env: AxisEnv):
+    """(this rank's rows of the global batch ``t``, whether they are a
+    data shard): in each of the ``microbatches`` microbatches
+    ``t.reshape(mb, B // mb, ...)`` makes, its data shard as
+    ``batch_pspec`` splits the microbatch, so that the rank's own
+    microbatch ``i`` is its part of the reference's microbatch ``i``."""
+    B, mb = t.shape[0], microbatches
+    if B % mb:
+        raise ValueError(f"batch {B} is not a multiple of {mb} "
+                         f"microbatches")
+    spec = batch_pspec(B // mb, env)
+    if not spec:
+        return t, False
+    parts = t.reshape((mb, B // mb) + tuple(t.shape[1:]))
+    return local_part(parts, P(None, spec[0]), env).reshape(
+        (-1,) + tuple(t.shape[1:])), True
+
+
+def compute_params(params, env: AxisEnv):
+    """The leaves as the layers compute with them under ``env``: every
+    DTensor gathered over the fsdp axes, its ``model`` shard kept (an
+    mLSTM leaf gathered whole); plain leaves as they are.  Every rank of
+    the mesh calls it."""
+    names, paths, leaves = flatten_with_names(params)
+    return unflatten_from_paths(paths, [
+        comm.gather(x, axes=None if whole_over_model(n) else env.fsdp)
+        for n, x in zip(names, leaves)])
+
+
+def _model_shard(g, spec, env: AxisEnv):
+    """This rank's ``model`` shard of a gradient that is whole over it."""
+    only = P(*[e if env.model in spec_axes(e) else None for e in spec])
+    return local_part(g, only, env)
+
+
+def shard_grads(names, leaves, grads, cfg: ArchConfig, env: AxisEnv):
+    """Each param's gradient (as the layers computed it from
+    ``compute_params``, on this rank's rows) laid out as the param
+    DTensor is: summed over ``model`` where it is a part there, cut to
+    the ``model`` shard where it is whole, then the mean over the batch
+    axes reduce-scattered to the param's placements.  ``grads`` is
+    emptied as it goes."""
+    tp = ctx.tp_of(env)
+    batch_dims = [i for i, a in enumerate(env.axes) if a in env.dp]
+    out = []
+    for i, (name, x) in enumerate(zip(names, leaves)):
+        g, grads[i] = grads[i], None
+        shape = tuple(x.shape)
+        if tp is not None and whole_over_model(name):
+            g = _model_shard(g, param_pspec(name, shape, cfg, env), env)
+        elif tp is not None and model_partial(name, shape, cfg, env):
+            g = comm.sum_over_model(g, tp)
+        out.append(DTensor.from_local(
+            comm.reduce_mean(g, x.placements, env.mesh, batch_dims),
+            env.mesh, x.placements, run_check=False))
+    return out
+
+
 def make_sharded_train_step(cfg: ArchConfig, tcfg: TrainConfig,
                             env: AxisEnv):
     """Returns train_step(params, opt_state, tokens, labels) -> (params,
@@ -126,29 +197,21 @@ def make_sharded_train_step(cfg: ArchConfig, tcfg: TrainConfig,
     for params and ``m``/``v`` laid out by ``shard_tree`` over
     ``env.mesh`` and the global batch ``tokens``/``labels`` (every rank
     passes all of it).  Every rank of the mesh calls each step."""
-    if env.msize != 1:
-        raise NotImplementedError(
-            f"tensor parallelism over {env.model!r} ({env.msize}): the "
-            f"sharded step runs data parallelism only")
     mesh = env.mesh
     batch_dims = [i for i, a in enumerate(env.axes) if a in env.dp]
     loss_and_grads = make_loss_and_grads(cfg, tcfg)
 
     def train_step(params, opt_state, tokens, labels):
-        spec = batch_pspec(tokens.shape[0], env)
-        tok, lab = local_part(tokens, spec, env), local_part(labels, spec,
-                                                              env)
-        _, paths, leaves = flatten_with_names(params)
-        full = [comm.gather(x) for x in leaves]
-        loss, grads = loss_and_grads(paths, full, tok, lab)
+        mb = tcfg.microbatches
+        (tok, split), (lab, _) = (batch_rows(tokens, mb, env),
+                                  batch_rows(labels, mb, env))
+        names, paths, leaves = flatten_with_names(params)
+        full = flatten_with_names(compute_params(params, env))[2]
+        with ctx.use_env(env, split_batch=split):
+            loss, grads = loss_and_grads(paths, full, tok, lab)
         del full
-        shards = []
-        for i, x in enumerate(leaves):
-            g, grads[i] = grads[i], None
-            shards.append(DTensor.from_local(
-                comm.reduce_mean(g, x.placements, mesh, batch_dims), mesh,
-                x.placements, run_check=False))
-        if spec:     # the ranks' losses are over different rows
+        shards = shard_grads(names, leaves, grads, cfg, env)
+        if split:    # the ranks' losses are over different rows
             loss = comm.all_reduce_sum(loss.clone(), mesh,
                                        batch_dims) / env.dpsize
         lr = warmup_cosine(opt_state["count"], peak_lr=tcfg.peak_lr,
@@ -159,3 +222,67 @@ def make_sharded_train_step(cfg: ArchConfig, tcfg: TrainConfig,
         return params, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr}
 
     return train_step
+
+
+def _serve_rows(t, env: AxisEnv):
+    rows, split = batch_rows(t, 1, env)
+    if not split and env.dpsize > 1:
+        raise NotImplementedError(
+            f"batch {t.shape[0]} over {env.dpsize} data shards: the "
+            f"sequence-parallel caches of cache_pspec are not ported")
+    return rows, split
+
+
+def _laid_out(local, spec, env: AxisEnv, shape):
+    """A DTensor of this rank's ``local`` part of a tensor of ``shape``."""
+    if tuple(local.shape) != local_shape(shape, spec, env):
+        raise ValueError(f"a part {tuple(local.shape)} of {tuple(shape)} "
+                         f"is not laid out by {spec}")
+    return DTensor.from_local(local.contiguous(), env.mesh,
+                              placements(spec, env), run_check=False)
+
+
+def _serve_out(cfg, env, logits, caches, batch, shapes):
+    """Logits (B, V) over the data axes and caches by ``cache_pspec``;
+    ``shapes`` the caches' whole shapes."""
+    lspec = P(batch_pspec(batch, env)[0], *[None] * (logits.dim() - 1))
+    names, paths, leaves = flatten_with_names(caches)
+    return (_laid_out(logits, lspec, env, (batch,) + tuple(logits.shape[1:])),
+            unflatten_from_paths(paths, [
+                _laid_out(c, cache_pspec(n, s, cfg, env, batch), env, s)
+                for n, s, c in zip(names, shapes, leaves)]))
+
+
+def make_sharded_serve_prefill(cfg: ArchConfig, cache_len: int,
+                               env: AxisEnv, q_chunk: int = 1024):
+    """prefill(params, tokens) -> (last_logits, caches) for the global
+    batch ``tokens`` (every rank passes all of it) and params laid out by
+    ``shard_tree`` (or already ``compute_params``): the logits a DTensor
+    over the data axes, the caches DTensors laid out by ``cache_pspec``.
+    Every rank of the mesh calls it."""
+    def serve_prefill(params, tokens):
+        tok, split = _serve_rows(tokens, env)
+        with ctx.use_env(env, split_batch=split):
+            logits, caches = lm.prefill(compute_params(params, env), cfg, tok,
+                                        cache_len, q_chunk=q_chunk)
+        whole = lm.init_cache(cfg, tokens.shape[0], cache_len, device="meta")
+        return _serve_out(cfg, env, logits, caches, tokens.shape[0],
+                          [tuple(m.shape) for m in
+                           flatten_with_names(whole)[2]])
+    return serve_prefill
+
+
+def make_sharded_serve_decode(cfg: ArchConfig, env: AxisEnv):
+    """decode(params, caches, token, pos) -> (logits, caches): one token of
+    the global batch (``token``, ``pos`` (B,)) from ``caches`` as
+    ``make_sharded_serve_prefill`` lays them out."""
+    def serve_decode(params, caches, token, pos):
+        (tok, split), (p, _) = _serve_rows(token, env), _serve_rows(pos, env)
+        _, paths, leaves = flatten_with_names(caches)
+        local = unflatten_from_paths(paths, [c.to_local() for c in leaves])
+        with ctx.use_env(env, split_batch=split):
+            logits, new = lm.decode_step(compute_params(params, env), cfg,
+                                         local, tok, p)
+        return _serve_out(cfg, env, logits, new, token.shape[0],
+                          [tuple(c.shape) for c in leaves])
+    return serve_decode

@@ -49,6 +49,7 @@ import torch.multiprocessing as mp
 
 from repro_torch.configs.base import get_arch, reduce_for_smoke
 from repro_torch.core.descriptor import flatten_with_names
+from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import make_axis_env
 from repro_torch.distributed.train_step import (gather_tree, local_nbytes,
@@ -58,7 +59,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import lm
 from repro_torch.models.flops import param_counts
-from repro_torch.training import checkpoint as ckpt
+from repro_torch.training.checkpoint import checkpoint_nbytes
 from repro_torch.training.data import TokenStream
 from repro_torch.training.optimizer import init_opt_state, tree_map
 from repro_torch.training.train_step import TrainConfig, make_train_step
@@ -250,8 +251,8 @@ def _train(rank, device, store, tmp, args) -> dict:
         _sync(device)
         out["checkpoint"]["load_s"] = time.perf_counter() - t0
         if rank == 0:
-            out["checkpoint"]["bytes"] = ckpt.checkpoint_nbytes(ckpt_dir,
-                                                                crash_at)
+            out["checkpoint"]["bytes"] = checkpoint_nbytes(ckpt_dir,
+                                                           crash_at)
         metered("checkpoint")
         if saved is not None:
             out["checks"]["b"] = {
@@ -392,13 +393,16 @@ def _single_rank_check(cfg, tcfg, before, params, opt, m, tok_lab):
     """A step just taken on the sharded ranks (``params``, ``opt``, its
     metrics ``m``) against one rank's step from the same state ``before``
     (rank 0's full params and AdamW state, None elsewhere; the step updates
-    it in place) and tokens: every rank gathers, rank 0 compares and
-    returns loss, gnorm, params and AdamW ``m`` apart; None on the
-    others."""
-    got_p, got_m = gather_tree(params), gather_tree(opt["m"])
-    if dist.get_rank() != 0:
+    it in place) and tokens: rank 0 takes the step, every rank gathers,
+    rank 0 compares and returns loss, gnorm, params and AdamW ``m`` apart;
+    None on the others."""
+    first = dist.get_rank() == 0
+    if first:
+        rp, ro, rm = make_train_step(cfg, tcfg)(*before, *tok_lab)
+    errors = state_errors(params, opt["m"], rp if first else None,
+                          ro["m"] if first else None)
+    if not first:
         return None
-    rp, ro, rm = make_train_step(cfg, tcfg)(*before, *tok_lab)
     lr = float(rm["lr"])
     out = {"loss": float(m["loss"]), "single_loss": float(rm["loss"]),
            "gnorm": float(m["gnorm"]), "single_gnorm": float(rm["gnorm"]),
@@ -407,22 +411,40 @@ def _single_rank_check(cfg, tcfg, before, params, opt, m, tok_lab):
         out["single_loss"])
     out["gnorm_rel_err"] = abs(out["gnorm"] - out["single_gnorm"]) / abs(
         out["single_gnorm"])
-    diff, far, n = 0.0, 0, 0
-    for a, b in zip(flatten_with_names(got_p)[2], flatten_with_names(rp)[2]):
-        d = (a - b).abs()
-        diff = max(diff, float(d.max()))
-        far += int((d > 1e-5 * b.abs() + 1e-7).sum())
-        n += d.numel()
-    out["params_max_abs_diff"], out["params_far_share"] = diff, far / n
-    # m = b1 m0 + (1 - b1) g s, m0 the same on both: the gradient's part
-    # differs, to the clip scale
-    ratio = 0.0
-    for a, b in zip(flatten_with_names(got_m)[2],
-                    flatten_with_names(ro["m"])[2]):
-        tol = 1e-4 * b.abs() + 1e-5 * float(b.abs().max()) + 1e-30
-        ratio = max(ratio, float(((a - b).abs() / tol).max()))
-    out["m_err_over_grad_tol"] = ratio
-    return out
+    return {**out, **errors}
+
+
+def state_errors(params, m, want, want_m) -> dict:
+    """Sharded ``params`` and AdamW ``m`` against whole ones (``want``,
+    ``want_m``, given on the mesh's first rank only), leaf by leaf, each
+    gathered in turn into that rank (every rank calls): the largest
+    param difference, the
+    share of elements further than 1e-5 relative (+1e-7), and ``m``'s
+    largest difference over the CPU parity tests' gradient tolerance
+    (1e-4 relative + 1e-5 of the leaf's largest magnitude; ``m = b1 m0 +
+    (1 - b1) g s`` with ``m0`` the same on both sides, so its gradient
+    part differs, to the clip scale).  {} on the other ranks."""
+    first = want is not None
+    wp = flatten_with_names(want)[2] if first else None
+    wm = flatten_with_names(want_m)[2] if first else None
+    diff, far, n, ratio = 0.0, 0, 0, 0.0
+    for i, (x, mx) in enumerate(zip(flatten_with_names(params)[2],
+                                    flatten_with_names(m)[2])):
+        a, am = comm.gather(x, first_only=True), comm.gather(
+            mx, first_only=True)
+        if first:
+            d = (a - wp[i]).abs()
+            diff = max(diff, float(d.max()))
+            far += int((d > 1e-5 * wp[i].abs() + 1e-7).sum())
+            n += d.numel()
+            b = wm[i]
+            tol = 1e-4 * b.abs() + 1e-5 * float(b.abs().max()) + 1e-30
+            ratio = max(ratio, float(((am - b).abs() / tol).max()))
+        del a, am
+    if not first:
+        return {}
+    return {"params_max_abs_diff": diff, "params_far_share": far / n,
+            "m_err_over_grad_tol": ratio}
 
 
 def _same_step(params, dparams, m, dm) -> dict:

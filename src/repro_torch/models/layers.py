@@ -7,6 +7,26 @@ Plain functions on tensors; parameters are nested dicts of tensors with
 the reference package's names and layouts (heads kept as separate axes:
 ``wq`` (d, H, hd), ``wo`` (H, hd, d)).  The code stays close to the
 reference's jnp code, eagerly, so that tests compare like with like.
+
+Tensor parallelism (an env installed in ``distributed.ctx`` whose
+``model`` axis has size > 1): each rank holds its shards of the weights
+that ``param_pspec`` splits over ``model`` and computes its part, where
+the reference's GSPMD partitions the einsums.  Activations stay plain
+tensors replicated over ``model``; a split region starts with
+``comm.copy_to_model`` and ends with ``comm.reduce_from_model``:
+
+- attention by ``sharding.attn_plan``: "heads" splits Q and K/V heads;
+  "hd" splits head_dim, so the scores are a partial sum (all-reduced
+  before the softmax, whose output enters the value product as a copy),
+  and RoPE's rotate-half and the q/k norms, which need whole heads, run
+  on head_dim gathered over ``model`` and re-sliced; "qtp" splits Q
+  heads and computes K/V whole on every rank;
+- the MLP column-parallel (``wi``/``wg``) and row-parallel (``wd``);
+- the embedding, logits and cross-entropy vocab-parallel: a masked local
+  lookup summed over ``model``; local logits, gathered over vocab for
+  prefill and decode; a loss from the max, the sum of exponentials and
+  the gold logit, each reduced over ``model`` (an untied multi-codebook
+  head splits by whole codebooks, each rank's loss a part of the sum).
 """
 from __future__ import annotations
 
@@ -17,7 +37,25 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import comm, ctx
+from repro_torch.distributed.sharding import attn_plan
+
 NEG_INF = -1e30
+
+
+def split_over(n: int):
+    """The installed env's ``ctx.TP`` when a dim of ``n`` splits over
+    ``model`` (the rule ``param_pspec`` applies), else None."""
+    t = ctx.tp()
+    return t if t is not None and n % t.size == 0 else None
+
+
+def _enter(x, t):
+    return x if t is None else comm.copy_to_model(x, t)
+
+
+def _leave(y, t):
+    return y if t is None else comm.reduce_from_model(y, t)
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -102,14 +140,17 @@ def init_mlp(gen, d_model, d_ff, gated, device=None, stack=None):
     return p
 
 
-def mlp(params, x, gated):
+def mlp(params, x, gated, tp=None):
+    """``tp``: the rank's ``ctx.TP`` when d_ff is split over ``model``
+    (``wi``/``wg`` by columns, ``wd`` by rows: a partial sum)."""
     dt = x.dtype
+    x = _enter(x, tp)
     h = x @ params["wi"].to(dt)
     if gated:
         h = F.silu(x @ params["wg"].to(dt)) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    return h @ params["wd"].to(dt)
+    return _leave(h @ params["wd"].to(dt), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +177,39 @@ def init_attention(gen, cfg, spec, device=None, stack=None):
     return p
 
 
-def _project_qkv(params, x, spec, cfg, positions):
+def _attn_tp(cfg):
+    """(TP, plan) of the installed env's attention split, or (None, None)
+    when attention is not split (no env, or replicated over ``model``)."""
+    t = ctx.tp()
+    plan = attn_plan(cfg, t.env) if t is not None else None
+    return (t, plan) if plan else (None, None)
+
+
+def _cache_hd(cfg):
+    """The TP when ``cache_pspec`` splits the K/V caches' head_dim over
+    ``model`` while attention computes on whole heads ("qtp", replicated),
+    so that caches are sliced to rest and gathered to compute."""
+    t = ctx.tp()
+    if t is None or _attn_tp(cfg)[1] in ("heads", "hd"):
+        return None
+    ms = t.size
+    return t if cfg.num_kv_heads % ms and cfg.head_dim % ms == 0 else None
+
+
+def _kv_heads(k, cfg, tp):
+    """Under "qtp", the K/V head(s) this rank's Q heads read."""
+    Hl = cfg.num_heads // tp.size
+    G = cfg.num_heads // cfg.num_kv_heads
+    if G % Hl:
+        raise NotImplementedError(
+            f"qtp: {Hl} Q heads per rank straddle groups of {G}")
+    j = tp.rank * Hl // G
+    return k[:, :, j:j + 1]
+
+
+def _project_qkv(params, x, spec, cfg, positions, tp=None, plan=None):
     dt = x.dtype
+    x = _enter(x, tp)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
@@ -145,26 +217,33 @@ def _project_qkv(params, x, spec, cfg, positions):
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
+    whole = plan == "hd" and (spec.qk_norm or spec.rope)
+    if whole:      # rotate-half and the norms need whole heads
+        q, k = comm.gather_model(q, tp, -1), comm.gather_model(k, tp, -1)
     if spec.qk_norm:
         q = rms_norm(q, params["q_norm"]["scale"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"]["scale"], cfg.norm_eps)
     if spec.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if whole:
+        q, k = comm.slice_model(q, tp, -1), comm.slice_model(k, tp, -1)
     return q, k, v
 
 
-def _sdpa(q, k, v, mask, scale):
+def _sdpa(q, k, v, mask, scale, part=None):
     """q: (B,Sq,H,hd) k,v: (B,Sk,K,hd); GQA by head grouping.
-    mask: (B|1,Sq,Sk) bool."""
+    mask: (B|1,Sq,Sk) bool.  ``part``: the TP when head_dim is split over
+    ``model``: the scores are summed over it before the softmax."""
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     G = H // K
     q = q.reshape(B, Sq, K, G, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
+    scores = _leave(scores, part)
     scores = torch.where(mask[:, None, None, :, :], scores,
                          torch.full_like(scores, NEG_INF))
-    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    w = _enter(torch.softmax(scores, dim=-1).to(v.dtype), part)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
     return out.reshape(B, Sq, H, hd)
 
@@ -181,25 +260,37 @@ def attention_train(params, x, spec, cfg, positions, q_chunk=1024,
     halves the scores' FLOPs.  S must be a multiple of ``q_chunk`` then,
     as the reference's reshape requires."""
     scale = cfg.head_dim ** -0.5
-    q, k, v = _project_qkv(params, x, spec, cfg, positions)
-    if x.shape[1] <= q_chunk:
-        out = _attend_whole(q, k, v, spec, positions, scale)
-    elif spec.window is not None:
-        out = _window_chunked(q, k, v, spec.window, q_chunk, scale)
-    elif exact_causal_slices:
-        out = _causal_unrolled(q, k, v, q_chunk, scale)
-    else:
-        out = _causal_chunked(q, k, v, q_chunk, scale)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    tp, plan = _attn_tp(cfg)
+    q, k, v = _project_qkv(params, x, spec, cfg, positions, tp, plan)
+    out = _attend(q, k, v, spec, cfg, positions, scale, q_chunk, tp, plan,
+                  exact_causal_slices)
+    return _leave(torch.einsum("bshk,hkd->bsd", out,
+                               params["wo"].to(x.dtype)), tp)
 
 
-def _attend_whole(q, k, v, spec, positions, scale):
+def _attend(q, k, v, spec, cfg, positions, scale, q_chunk, tp, plan,
+            exact_causal_slices=False):
+    """Causal attention of the prompt: in one pass up to ``q_chunk``
+    queries, else in query chunks; the split's own heads (or head_dim)."""
+    if plan == "qtp":
+        k, v = _kv_heads(k, cfg, tp), _kv_heads(v, cfg, tp)
+    part = tp if plan == "hd" else None
+    if q.shape[1] <= q_chunk:
+        return _attend_whole(q, k, v, spec, positions, scale, part)
+    if spec.window is not None:
+        return _window_chunked(q, k, v, spec.window, q_chunk, scale, part)
+    if exact_causal_slices:
+        return _causal_unrolled(q, k, v, q_chunk, scale, part)
+    return _causal_chunked(q, k, v, q_chunk, scale, part)
+
+
+def _attend_whole(q, k, v, spec, positions, scale, part=None):
     """Causal (and window) masked attention of every query in one pass."""
     qpos = positions if positions.dim() > 1 else positions[None, :]
     mask = qpos[:, :, None] >= qpos[:, None, :]
     if spec.window:
         mask &= qpos[:, :, None] - qpos[:, None, :] < spec.window
-    return _sdpa(q, k, v, mask, scale)
+    return _sdpa(q, k, v, mask, scale, part)
 
 
 def _num_chunks(S: int, c: int) -> int:
@@ -208,7 +299,7 @@ def _num_chunks(S: int, c: int) -> int:
     return S // c
 
 
-def _causal_chunked(q, k, v, c, scale):
+def _causal_chunked(q, k, v, c, scale, part=None):
     """Each query chunk against all S keys, masked causally."""
     S = q.shape[1]
     kpos = torch.arange(S, device=q.device)
@@ -216,11 +307,11 @@ def _causal_chunked(q, k, v, c, scale):
     for i in range(_num_chunks(S, c)):
         qpos = i * c + torch.arange(c, device=q.device)
         mask = (qpos[:, None] >= kpos[None, :])[None]
-        outs.append(_sdpa(q[:, i * c:(i + 1) * c], k, v, mask, scale))
+        outs.append(_sdpa(q[:, i * c:(i + 1) * c], k, v, mask, scale, part))
     return torch.cat(outs, dim=1)
 
 
-def _causal_unrolled(q, k, v, c, scale):
+def _causal_unrolled(q, k, v, c, scale, part=None):
     """Each query chunk against the keys up to its own end."""
     S = q.shape[1]
     outs = []
@@ -230,11 +321,11 @@ def _causal_unrolled(q, k, v, c, scale):
         kpos = torch.arange(kv_end, device=q.device)
         mask = (qpos[:, None] >= kpos[None, :])[None]
         outs.append(_sdpa(q[:, i * c:kv_end], k[:, :kv_end], v[:, :kv_end],
-                          mask, scale))
+                          mask, scale, part))
     return torch.cat(outs, dim=1)
 
 
-def _window_chunked(q, k, v, window, c, scale):
+def _window_chunked(q, k, v, window, c, scale, part=None):
     """Front-pad KV by ``window`` (rounded up to a chunk multiple) so each
     query chunk reads a fixed (w + c) band; keys before position 0 and
     past the window are masked."""
@@ -250,21 +341,23 @@ def _window_chunked(q, k, v, window, c, scale):
                 & (qpos[:, None] - kpos[None, :] < window)
                 & (kpos[None, :] >= 0))[None]
         outs.append(_sdpa(q[:, i * c:(i + 1) * c], kp[:, i * c:i * c + w + c],
-                          vp[:, i * c:i * c + w + c], mask, scale))
+                          vp[:, i * c:i * c + w + c], mask, scale, part))
     return torch.cat(outs, dim=1)
 
 
-def attention_prefill(params, x, spec, cfg, positions, cache_len):
+def attention_prefill(params, x, spec, cfg, positions, cache_len,
+                      q_chunk=1024):
     """Causal (optionally sliding-window) attention over the prompt; also
     returns the (k, v) cache of size cache_len.
 
     Window layers keep only the last ``window`` keys (ring layout, slot =
-    pos % window).  The reference splits long prompts into query chunks
-    to bound its working set; this computes the same masked attention in
-    one pass."""
-    q, k, v = _project_qkv(params, x, spec, cfg, positions)
+    pos % window).  Past ``q_chunk`` tokens the queries go in chunks, as
+    in training."""
+    tp, plan = _attn_tp(cfg)
+    q, k, v = _project_qkv(params, x, spec, cfg, positions, tp, plan)
     B = x.shape[0]
-    out = _attend_whole(q, k, v, spec, positions, cfg.head_dim ** -0.5)
+    out = _attend(q, k, v, spec, cfg, positions, cfg.head_dim ** -0.5,
+                  q_chunk, tp, plan)
 
     if spec.window is not None:
         w = min(spec.window, cache_len)
@@ -284,8 +377,12 @@ def attention_prefill(params, x, spec, cfg, positions, cache_len):
         pad = cache_len - x.shape[1]
         cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
                  "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+    rest = _cache_hd(cfg)
+    if rest is not None:
+        cache = {n: comm.slice_model(c, rest, -1) for n, c in cache.items()}
     dt = x.dtype
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt)), cache
+    return _leave(torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt)),
+                  tp), cache
 
 
 def attention_decode(params, x, spec, cfg, cache, pos):
@@ -295,9 +392,14 @@ def attention_decode(params, x, spec, cfg, cache, pos):
     Window layers: ring cache (B,w,K,hd), write at pos%w, mask by recency.
     """
     B = x.shape[0]
-    q, k, v = _project_qkv(params, x, spec, cfg, pos[:, None])
+    tp, plan = _attn_tp(cfg)
+    q, k, v = _project_qkv(params, x, spec, cfg, pos[:, None], tp, plan)
     scale = cfg.head_dim ** -0.5
-    ck, cv = cache["k"].clone(), cache["v"].clone()
+    rest = _cache_hd(cfg)
+    if rest is not None:
+        ck, cv = (comm.gather_model(cache[n], rest, -1) for n in ("k", "v"))
+    else:
+        ck, cv = cache["k"].clone(), cache["v"].clone()
     bidx = torch.arange(B, device=x.device)
     if spec.window is not None:
         w = ck.shape[1]
@@ -312,9 +414,14 @@ def attention_decode(params, x, spec, cfg, cache, pos):
         ck[bidx, pos.to(torch.long)] = k[:, 0]
         cv[bidx, pos.to(torch.long)] = v[:, 0]
         valid = torch.arange(Smax, device=x.device)[None, :] <= pos[:, None]
-    out = _sdpa(q, ck, cv, valid[:, None, :], scale)
+    ka, va = ((_kv_heads(ck, cfg, tp), _kv_heads(cv, cfg, tp))
+              if plan == "qtp" else (ck, cv))
+    out = _sdpa(q, ka, va, valid[:, None, :], scale,
+                tp if plan == "hd" else None)
     dt = x.dtype
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+    y = _leave(torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt)), tp)
+    if rest is not None:
+        ck, cv = comm.slice_model(ck, rest, -1), comm.slice_model(cv, rest, -1)
     return y, {"k": ck, "v": cv}
 
 
@@ -343,19 +450,69 @@ def init_embed(gen, cfg, device=None):
 
 
 def embed_tokens(params, cfg, tokens, dtype):
-    """tokens: (B,S) or (B,S,CB) for multi-codebook archs."""
+    """tokens: (B,S) or (B,S,CB) for multi-codebook archs.  With the vocab
+    split over ``model``, each rank looks up the ids in its range and the
+    rows are summed over ``model``."""
     tok = params["tok"].to(dtype)
+    t = split_over(cfg.vocab_size)
+    if t is not None:
+        Vl = tok.shape[-2]
+        look = lambda table, ids: _masked_rows(table, ids.long() - t.rank * Vl)
+    else:
+        look = lambda table, ids: table[ids.to(torch.long)]
     if cfg.num_codebooks > 1:
         # sum of per-codebook embeddings
         out = 0.0
         for c in range(cfg.num_codebooks):
-            out = out + tok[c][tokens[..., c].to(torch.long)]
-        return out
-    return tok[tokens.to(torch.long)]
+            out = out + look(tok[c], tokens[..., c])
+    else:
+        out = look(tok, tokens)
+    return _leave(out, t)
+
+
+def _masked_rows(table, local):
+    """Rows ``local`` of ``table``, zero where ``local`` is out of range."""
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(mine, local, torch.zeros_like(local))]
+    return torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                          device=rows.device))
+
+
+def _vocab_tp(cfg):
+    """(TP, split) of the output head over ``model``: split "vocab" (each
+    rank a vocab range), "codebooks" (an untied multi-codebook head whose
+    column shards are whole codebooks) or None."""
+    cb = cfg.num_codebooks
+    if cfg.tie_embeddings or cb == 1:
+        t = split_over(cfg.vocab_size)
+        return t, "vocab" if t is not None else None
+    t = split_over(cb * cfg.vocab_size)
+    if t is None:
+        return None, None
+    if cb % t.size:
+        raise NotImplementedError(
+            f"an untied head of {cb} codebooks over {t.size} ranks: its "
+            f"column shards straddle codebooks")
+    return t, "codebooks"
 
 
 def output_logits(params, cfg, h):
-    """h: (B,S,D) -> logits (B,S,V) or (B,S,CB,V)."""
+    """h: (B,S,D) -> logits (B,S,V) or (B,S,CB,V); split over ``model``,
+    each rank's part is gathered."""
+    logits, t, split = _local_logits(params, cfg, h)
+    if t is None:
+        return logits
+    return comm.gather_model(logits, t, -1 if split == "vocab" else -2)
+
+
+def _local_logits(params, cfg, h):
+    """(this rank's logits, the TP or None, its split)."""
+    t, split = _vocab_tp(cfg)
+    h = _enter(h, t)
+    return _head(params, cfg, h), t, split
+
+
+def _head(params, cfg, h):
     dt = h.dtype
     if cfg.tie_embeddings:
         tok = params["tok"].to(dt)
@@ -365,7 +522,7 @@ def output_logits(params, cfg, h):
     logits = h @ params["out"].to(dt)
     if cfg.num_codebooks > 1:
         B, S = h.shape[:2]
-        return logits.reshape(B, S, cfg.num_codebooks, cfg.vocab_size)
+        return logits.reshape(B, S, -1, cfg.vocab_size)
     return logits
 
 
@@ -378,9 +535,25 @@ def chunked_xent(params, cfg, h, labels, chunk=256):
     nc = S // chunk
 
     def chunk_loss(hc, lc):
-        logits = output_logits(params, cfg, hc).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None].to(torch.long))[..., 0]
+        logits, t, split = _local_logits(params, cfg, hc)
+        logits = logits.float()
+        if split == "codebooks":        # this rank's codebooks, whole
+            n = logits.shape[-2]
+            lc = lc[..., t.rank * n:(t.rank + 1) * n]
+        if t is None or split == "codebooks":
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                lc[..., None].to(torch.long))[..., 0]
+            return _leave(torch.sum(lse - gold), t)
+        # vocab-parallel: max, sum of exponentials and gold logit over model
+        m = comm.all_reduce_max(logits.amax(-1), t)
+        lse = m + torch.log(comm.reduce_from_model(
+            torch.exp(logits - m[..., None]).sum(-1), t))
+        local = lc.long() - t.rank * logits.shape[-1]
+        mine = (local >= 0) & (local < logits.shape[-1])
+        gold = torch.gather(logits, -1, torch.where(
+            mine, local, torch.zeros_like(local))[..., None])[..., 0]
+        gold = comm.reduce_from_model(torch.where(mine, gold, 0.0), t)
         return torch.sum(lse - gold)
 
     bounds = [(i * chunk, (i + 1) * chunk) for i in range(nc)]

@@ -15,7 +15,7 @@ API:
   forward(params, cfg, tokens)                       -> hidden (B,S,D)
   loss_fn(params, cfg, tokens, labels)               -> scalar
   logits_fn(params, cfg, tokens)                     -> logits
-  prefill(params, cfg, tokens, cache_len)            -> (last_logits, caches)
+  prefill(params, cfg, tokens, cache_len, q_chunk)   -> (last_logits, caches)
   decode_step(params, cfg, caches, token, pos)       -> (logits, caches)
   init_cache(cfg, batch, cache_len, dtype, device)
 """
@@ -116,7 +116,8 @@ def apply_block(params, h, cfg, spec, *, mode, positions=None, cache=None,
                               exact_causal_slices=exact_causal)
     elif mode == "prefill":
         a, cache_out = L.attention_prefill(params["attn"], hn, spec, cfg,
-                                           positions, cache_len)
+                                           positions, cache_len,
+                                           q_chunk=q_chunk)
     else:
         a, cache_out = L.attention_decode(params["attn"], hn, spec, cfg,
                                           cache, pos)
@@ -126,7 +127,8 @@ def apply_block(params, h, cfg, spec, *, mode, positions=None, cache=None,
         if cfg.moe_experts:
             h = h + MOE.moe_mlp(params["moe"], hn2, cfg)
         else:
-            h = h + L.mlp(params["mlp"], hn2, cfg.mlp_gated)
+            h = h + L.mlp(params["mlp"], hn2, cfg.mlp_gated,
+                          tp=L.split_over(cfg.d_ff))
     return h, cache_out
 
 
@@ -268,7 +270,7 @@ def _run_groups(params, cfg, h, *, mode, positions=None, caches=None,
                      else None)
                 h, co = apply_block(bp, h, cfg, spec, mode=mode,
                                     positions=positions, cache=c, pos=pos,
-                                    cache_len=cache_len)
+                                    cache_len=cache_len, q_chunk=q_chunk)
                 per_block[bi].append(co)
         new_groups.append({"blocks": [
             {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
@@ -300,13 +302,14 @@ def logits_fn(params, cfg: ArchConfig, tokens, **kw):
     return L.output_logits(params["embed"], cfg, h)
 
 
-def prefill(params, cfg: ArchConfig, tokens, cache_len):
+def prefill(params, cfg: ArchConfig, tokens, cache_len, q_chunk=1024):
     dt = _dtypes.torch_dtype(cfg.compute_dtype)
     h = L.embed_tokens(params["embed"], cfg, tokens, dt)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
     h, caches = _run_groups(params, cfg, h, mode="prefill",
-                            positions=positions, cache_len=cache_len)
+                            positions=positions, cache_len=cache_len,
+                            q_chunk=q_chunk)
     h = L.rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     logits = L.output_logits(params["embed"], cfg, h[:, -1:])[:, 0]
     return logits, caches

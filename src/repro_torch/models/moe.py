@@ -1,10 +1,22 @@
 """Top-k token-choice MoE with sort-based dispatch (capacity-dropping).
 
-The reference's GSPMD formulation (``_moe_mlp_gspmd``): dense batched
-products over an (E, C, D) dispatch buffer.  Its explicit expert-parallel
-variant (``moe_mlp_shardmap``) needs a device mesh and waits for the
-distribution slice (ROADMAP queue A); ``moe_mlp`` here is always the
-GSPMD path.
+``moe_mlp`` dispatches as the reference's does: the GSPMD formulation
+(``_moe_mlp_gspmd``, dense batched products over an (E, C, D) dispatch
+buffer) unless the installed env asks for ``moe_impl="shardmap"``.
+
+Distributed (an env installed in ``distributed.ctx``):
+
+- ``_moe_mlp_gspmd`` keeps the semantics of one device over the whole
+  microbatch, as GSPMD does: when the rows are this rank's data shard,
+  the ranks all-gather their per-expert counts, so the capacity is taken
+  over the microbatch's T and each token's rank within its expert counts
+  the tokens of lower data shards first;
+- ``moe_mlp_shardmap`` is the reference's explicit expert parallelism:
+  each data shard routes its own tokens with a local sort and a capacity
+  from its local T;
+- in both, with the experts split over ``model`` (expert parallelism),
+  a rank computes its ``E / msize`` experts and the partial outputs are
+  summed over ``model``.
 
 One difference in form, none in value: the reference combines with a
 scatter-add (``out.at[st].add``).  Here each token sums its K weighted
@@ -18,7 +30,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ninit
+from repro_torch.distributed import comm, ctx
+from repro_torch.distributed.sharding import moe_split
+from repro_torch.models.layers import _enter, _leave, ninit
 
 
 def init_moe(gen, cfg, device=None, stack=None):
@@ -35,23 +49,64 @@ def init_moe(gen, cfg, device=None, stack=None):
 
 
 def moe_mlp(params, x, cfg, return_aux=False):
+    """Dispatch to the configured implementation (the ctx env)."""
+    env = ctx.get_env()
+    if (env is not None and env.moe_impl == "shardmap" and not return_aux
+            and cfg.moe_experts % env.msize == 0):
+        return moe_mlp_shardmap(params, x, cfg, env)
+    return _moe_mlp_gspmd(params, x, cfg, return_aux)
+
+
+def _moe_mlp_gspmd(params, x, cfg, return_aux=False):
     """x: (B, S, D) -> (B, S, D). Token-choice top-k with capacity drop:
     each expert takes at most ``cap = max(int(factor * T * K / E), 1)`` of
-    the call's T tokens, in token order; the rest of its tokens get no
-    output from it.  ``return_aux`` adds the Switch load-balance loss."""
+    the T tokens (of the whole microbatch when these rows are a data
+    shard), in token order; the rest of its tokens get no output from it.
+    ``return_aux`` adds the Switch load-balance loss."""
+    t = ctx.tp()
+    return _moe(params, x, cfg,
+                t if t is not None and moe_split(cfg, t.env) else None,
+                ctx.batch_groups(), return_aux)
+
+
+def moe_mlp_shardmap(params, x, cfg, env):
+    """Explicit expert-parallel dispatch: this rank's rows ``x`` are routed
+    with a local sort and a capacity from their own T; the rank computes
+    its ``E / msize`` experts and the parts are summed over ``model``."""
+    return _moe(params, x, cfg, ctx.tp_of(env), [], False)
+
+
+def count_dropped(params, x, cfg) -> int:
+    """Tokens the experts refuse in one single-device ``moe_mlp`` call on
+    ``x``: the top-k choices past each expert's capacity."""
+    E, K = cfg.moe_experts, cfg.moe_topk
+    xf = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax((xf @ params["router"].to(x.dtype)).float(), -1)
+    counts = torch.bincount(torch.topk(probs, K, dim=-1).indices.reshape(-1),
+                            minlength=E)
+    cap = max(int(cfg.moe_capacity_factor * xf.shape[0] * K / E), 1)
+    return int(torch.clamp(counts - cap, min=0).sum())
+
+
+def _moe(params, x, cfg, tp, groups, return_aux):
+    """The dispatch, expert products and combine; ``tp`` the TP when the
+    experts are split over ``model``, ``groups`` the batch axes whose data
+    shards share the capacity (``ctx.batch_groups``)."""
+    if return_aux and (tp is not None or groups):
+        raise NotImplementedError("the load-balance loss of a distributed "
+                                  "MoE call")
     B, S, D = x.shape
     E, K = cfg.moe_experts, cfg.moe_topk
     T = B * S
     dt = x.dtype
     dev = x.device
-    xf = x.reshape(T, D)
+    xf = _enter(x, tp).reshape(T, D)
 
     logits = (xf @ params["router"].to(dt)).float()                  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, expert = torch.topk(probs, K, dim=-1)                       # (T, K)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
-    cap = max(int(cfg.moe_capacity_factor * T * K / E), 1)
     flat_e = expert.reshape(-1)                                       # (T*K,)
     flat_g = gate.reshape(-1)
     flat_t = torch.arange(T, device=dev).repeat_interleave(K)
@@ -62,25 +117,37 @@ def moe_mlp(params, x, cfg, return_aux=False):
     counts = torch.bincount(flat_e, minlength=E)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * K, device=dev) - starts[se]
+    T_all = T
+    if groups:      # the data shards of lower index come first
+        every = comm.gather_counts(counts, groups)                   # (n, E)
+        rank = rank + every[:ctx.batch_index()].sum(0)[se]
+        T_all = T * every.shape[0]
+    cap = max(int(cfg.moe_capacity_factor * T_all * K / E), 1)
     keep = rank < cap
-    dest = torch.where(keep, se * cap + rank,
-                       torch.full_like(rank, E * cap))                # drop slot
+    if tp is None:
+        El, e0 = E, 0
+    else:           # this rank's experts
+        El = E // tp.size
+        e0 = tp.rank * El
+        keep = keep & (se >= e0) & (se < e0 + El)
+    dest = torch.where(keep, (se - e0) * cap + rank,
+                       torch.full_like(rank, El * cap))            # drop slot
 
     # dispatch: (E*C+1, D) buffer, last row = trash for dropped tokens
-    buf = xf.new_zeros((E * cap + 1, D))
+    buf = xf.new_zeros((El * cap + 1, D))
     buf[dest] = xf[st]
-    h = buf[:E * cap].reshape(E, cap, D)
+    h = buf[:El * cap].reshape(El, cap, D)
 
     a = torch.bmm(h, params["wi"].to(dt))
     if cfg.mlp_gated:
         a = F.silu(torch.bmm(h, params["wg"].to(dt))) * a
     else:
         a = F.gelu(a, approximate="tanh")   # jax.nn.gelu's default
-    y = torch.bmm(a, params["wd"].to(dt)).reshape(E * cap, D)
+    y = torch.bmm(a, params["wd"].to(dt)).reshape(El * cap, D)
 
     # combine: gather expert outputs back to token order, weighted by gates
     contrib = torch.where(keep[:, None],
-                          y[torch.clamp(dest, max=E * cap - 1)],
+                          y[torch.clamp(dest, max=El * cap - 1)],
                           torch.zeros((), dtype=dt, device=dev))
     contrib = contrib * sg[:, None].to(dt)
     # each token's K sorted positions, ascending = by expert id
@@ -90,7 +157,7 @@ def moe_mlp(params, x, cfg, return_aux=False):
     out = xf.new_zeros((T, D))
     for k in range(K):
         out = out + contrib[slots[:, k]]
-    out = out.reshape(B, S, D)
+    out = _leave(out.reshape(B, S, D), tp)
 
     if return_aux:
         # Switch-style load-balance loss

@@ -5,8 +5,20 @@ Follows the SSD formulation (Dao & Gu, 2024): scalar per-head decay A,
 per-step dt (softplus), shared B/C projections (ngroups=1), causal depthwise
 conv on (x, B, C), gated output with RMSNorm.  The reference scans over
 chunks with ``lax.scan``; here a Python loop carries the state from chunk
-to chunk.  The reference's head-sharding constraints (Mamba tensor
-parallelism) belong to the distribution slice (ROADMAP queue A).
+to chunk.
+
+Mamba tensor parallelism (an env with ``mamba_tp`` whose ``model`` axis
+divides the heads; ``sharding.mamba_split``): every SSD einsum carries
+the head dim and never contracts it, so each rank computes its heads.
+It takes its columns of ``in_proj`` (its heads of z, x and dt; B and C
+whole), of the conv and of the per-head leaves, with its state
+(B, H/msize, P, N); the gated norm over d_inner sums its squares over
+``model``; ``out_proj``'s contraction over d_inner is a partial sum.  The
+weights stay replicated over ``model`` (``param_pspec`` lays Mamba out
+by fsdp only), so each rank's gradients of them are parts, summed over
+``model`` by the step.  Caches at rest are whole (``cache_pspec``): the
+final state and conv window are gathered over ``model``, and decode
+computes on its own heads of them.
 """
 from __future__ import annotations
 
@@ -14,8 +26,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (cinit, init_rms_norm, ninit, rms_norm,
-                                      zinit)
+from repro_torch.distributed import comm, ctx
+from repro_torch.distributed.sharding import mamba_split
+from repro_torch.models.layers import (_enter, _leave, cinit, init_rms_norm,
+                                      ninit, rms_norm, zinit)
 
 
 def _dims(cfg, spec):
@@ -50,8 +64,74 @@ def init_mamba(gen, cfg, spec, device=None, stack=None):
     }
 
 
-def _split_proj(params, x, cfg, spec):
-    d_inner, nheads, N = _dims(cfg, spec)
+def _tp_split(params, cfg, spec):
+    """(params, (d_inner, H, N), TP): the rank's own columns of every leaf
+    and its dims when the block's heads are split over ``model``, else
+    the block as it is and None."""
+    t = ctx.tp()
+    dims = _dims(cfg, spec)
+    if t is None or not mamba_split(cfg, spec, t.env):
+        return params, dims, None
+    d_inner, H, N = dims
+    Hl = H // t.size
+    h0, dl = t.rank * Hl, Hl * spec.head_dim
+    c0 = h0 * spec.head_dim
+    xs = slice(c0, c0 + dl)
+    conv = lambda w: torch.cat([w[..., xs], w[..., d_inner:]], dim=-1)
+    w = params["in_proj"]
+    own = {
+        "in_proj": torch.cat([w[:, xs], w[:, d_inner + c0:d_inner + c0 + dl],
+                              w[:, 2 * d_inner:2 * d_inner + 2 * N],
+                              w[:, 2 * d_inner + 2 * N + h0:
+                                2 * d_inner + 2 * N + h0 + Hl]], dim=1),
+        "conv_w": conv(params["conv_w"]), "conv_b": conv(params["conv_b"]),
+        "A_log": params["A_log"][h0:h0 + Hl],
+        "dt_bias": params["dt_bias"][h0:h0 + Hl],
+        "D": params["D"][h0:h0 + Hl],
+        "norm": {"scale": params["norm"]["scale"][xs]},
+        "out_proj": params["out_proj"][xs],
+    }
+    return own, (dl, Hl, N), t
+
+
+def _gated_norm(y, z, scale, eps, d_inner, tp):
+    """rms_norm(y * silu(z)) over d_inner; split over ``model``, the sum
+    of squares is summed over it (and, used by every rank's part, so is
+    its gradient)."""
+    g = y * F.silu(z)
+    if tp is None:
+        return rms_norm(g, scale, eps)
+    dt = g.dtype
+    g = g.float()
+    sq = torch.sum(torch.square(g), -1, keepdim=True)
+    var = comm.copy_to_model(comm.reduce_from_model(sq, tp), tp) / d_inner
+    return (g * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
+
+
+def _whole_cache(state, conv_state, d_inner, tp):
+    """The final SSD state and conv window over all heads and channels."""
+    if tp is None:
+        return state, conv_state
+    dl = d_inner // tp.size
+    xs = comm.gather_model(conv_state[..., :dl], tp, -1)
+    return (comm.gather_model(state, tp, 1),
+            torch.cat([xs, conv_state[..., dl:]], dim=-1))
+
+
+def _own_cache(cache, cfg, spec, tp):
+    """This rank's heads of a whole cache."""
+    if tp is None:
+        return cache
+    d_inner, H, _ = _dims(cfg, spec)
+    Hl, dl = H // tp.size, d_inner // tp.size
+    conv = cache["conv"]
+    return {"ssd": cache["ssd"][:, tp.rank * Hl:(tp.rank + 1) * Hl],
+            "conv": torch.cat([conv[..., tp.rank * dl:(tp.rank + 1) * dl],
+                               conv[..., d_inner:]], dim=-1)}
+
+
+def _split_proj(params, x, cfg, spec, dims=None):
+    d_inner, nheads, N = dims or _dims(cfg, spec)
     zxbcdt = x @ params["in_proj"].to(x.dtype)
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner:d_inner + d_inner + 2 * N]
@@ -80,12 +160,14 @@ def check_chunks(S: int, chunk: int) -> int:
 def mamba_forward(params, x, cfg, spec, chunk=256, return_state=False):
     """x: (B, S, D). Chunked SSD scan; optionally return final SSM+conv state."""
     B, S, D = x.shape
-    d_inner, H, N = _dims(cfg, spec)
+    d_full = _dims(cfg, spec)[0]
+    params, (d_inner, H, N), tp = _tp_split(params, cfg, spec)
+    x = _enter(x, tp)
     P = spec.head_dim
     dt_ = x.dtype
     f32 = torch.float32
 
-    z, xbc_raw, dt = _split_proj(params, x, cfg, spec)
+    z, xbc_raw, dt = _split_proj(params, x, cfg, spec, (d_inner, H, N))
     xbc = _conv_scan(params, xbc_raw)
     xs = xbc[..., :d_inner].reshape(B, S, H, P)
     Bm = xbc[..., d_inner:d_inner + N]                        # (B,S,N)
@@ -123,12 +205,14 @@ def mamba_forward(params, x, cfg, spec, chunk=256, return_state=False):
     y = torch.cat(ys, dim=1)
     y = y + xs.float() * params["D"].float()[None, None, :, None]
     y = y.reshape(B, S, d_inner).to(dt_)
-    y = rms_norm(y * F.silu(z), params["norm"]["scale"], cfg.norm_eps)
-    out = y @ params["out_proj"].to(dt_)
+    y = _gated_norm(y, z, params["norm"]["scale"], cfg.norm_eps, d_full, tp)
+    out = _leave(y @ params["out_proj"].to(dt_), tp)
     if return_state:
         d_conv = params["conv_w"].shape[0]
         conv_state = F.pad(xbc_raw, (0, 0, d_conv - 1, 0))[:, -(d_conv - 1):]
-        return out, {"ssd": state.float(), "conv": conv_state}
+        state, conv_state = _whole_cache(state.float(), conv_state, d_full,
+                                         tp)
+        return out, {"ssd": state, "conv": conv_state}
     return out
 
 
@@ -146,11 +230,14 @@ def init_mamba_cache(cfg, spec, batch, dtype, device=None):
 def mamba_decode(params, x, cfg, spec, cache):
     """One-step recurrence. x: (B,1,D)."""
     B = x.shape[0]
-    d_inner, H, N = _dims(cfg, spec)
+    d_full = _dims(cfg, spec)[0]
+    params, (d_inner, H, N), tp = _tp_split(params, cfg, spec)
+    cache = _own_cache(cache, cfg, spec, tp)
+    x = _enter(x, tp)
     P = spec.head_dim
     dt_ = x.dtype
 
-    z, xbc_raw, dt = _split_proj(params, x, cfg, spec)        # (B,1,*)
+    z, xbc_raw, dt = _split_proj(params, x, cfg, spec, (d_inner, H, N))
     # conv over ring of last d_conv inputs
     hist = torch.cat([cache["conv"], xbc_raw], dim=1)         # (B,d_conv,C)
     w = params["conv_w"].to(dt_)
@@ -169,6 +256,7 @@ def mamba_decode(params, x, cfg, spec, cache):
     y = torch.einsum("bn,bhpn->bhp", Cm, state)
     y = y + xh * params["D"].float()[None, :, None]
     y = y.reshape(B, 1, d_inner).to(dt_)
-    y = rms_norm(y * F.silu(z), params["norm"]["scale"], cfg.norm_eps)
-    out = y @ params["out_proj"].to(dt_)
+    y = _gated_norm(y, z, params["norm"]["scale"], cfg.norm_eps, d_full, tp)
+    out = _leave(y @ params["out_proj"].to(dt_), tp)
+    state, new_conv = _whole_cache(state, new_conv, d_full, tp)
     return out, {"ssd": state, "conv": new_conv}

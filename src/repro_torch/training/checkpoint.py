@@ -11,11 +11,8 @@ stdlib msgpack subset of ``core/descriptor.py`` (the same bytes as
 pattern (the reference's files hold the same bytes under the descr
 ``'<V2'``) and read back by the manifest's dtype name.
 
-Sharded state (DTensor leaves, ``distributed/train_step.py``) is saved to
-the same files: every rank of the mesh calls ``save_checkpoint``, the
-state is all-gathered and the mesh's first rank writes it.  A load with
-an ``env`` reads the files on the mesh's first rank and hands each rank
-its shard (``scatter_tree``).
+Sharded state (DTensor leaves) is saved to the same files by
+``distributed/checkpoint.py``, around these functions.
 """
 from __future__ import annotations
 
@@ -26,6 +23,7 @@ import time
 from typing import Any, Optional, Tuple
 
 import numpy as np
+from torch.distributed.tensor import DTensor
 
 from repro_torch import _dtypes
 from repro_torch.core.descriptor import (flatten_with_names, packb,
@@ -58,16 +56,10 @@ def save_checkpoint(ckpt_dir: str, step: int, params, opt_state=None,
     """Atomic: write into <dir>/tmp-<step>, fsync-free rename to step-<step>.
     The leaves are copied to the host before returning; with
     ``async_save`` the files are written by a thread, which is returned.
-    DTensor state is gathered first (a collective: every rank of its mesh
-    calls this) and only the mesh's first rank writes."""
-    mesh = _mesh_of(params)
-    if mesh is not None:
-        from repro_torch.distributed import comm
-        from repro_torch.distributed.train_step import gather_tree
-        params = gather_tree(params)
-        opt_state = None if opt_state is None else gather_tree(opt_state)
-        if not comm.is_first(mesh):
-            return None
+    Sharded state goes through ``distributed.checkpoint``."""
+    if isinstance(flatten_with_names(params)[2][0], DTensor):
+        raise TypeError("sharded state: save it with "
+                        "repro_torch.distributed.checkpoint")
     trees = {"params": _host_tree(params)}
     if opt_state is not None:
         trees["opt"] = _host_tree(opt_state)
@@ -99,12 +91,6 @@ def save_checkpoint(ckpt_dir: str, step: int, params, opt_state=None,
     return None
 
 
-def _mesh_of(tree):
-    """The device mesh of a tree of DTensors, None for plain tensors."""
-    leaf = flatten_with_names(tree)[2][0]
-    return getattr(leaf, "device_mesh", None)
-
-
 def _gc(ckpt_dir: str, keep: int):
     steps = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step-"))
     for d in steps[:-keep]:
@@ -119,15 +105,9 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def load_checkpoint(ckpt_dir: str, step: Optional[int] = None,
-                    device="cuda", env=None,
-                    cfg=None) -> Tuple[int, Any, Any, dict]:
+                    device="cuda") -> Tuple[int, Any, Any, dict]:
     """(step, params, opt_state or None, extra), every leaf a tensor on
-    ``device`` of the manifest's dtype.  With an ``AxisEnv`` (and the arch
-    ``cfg`` its rules read), every rank of ``env.mesh`` calls it, the
-    mesh's first rank reads the files, and params and ``m``/``v`` come back
-    as DTensors of each rank's shard; ``count`` is broadcast."""
-    if env is not None:
-        return _load_sharded(ckpt_dir, step, device, env, cfg)
+    ``device`` of the manifest's dtype."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -138,21 +118,6 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None,
     opt = (_load_tree(d, "opt", manifest["opt"], device)
            if "opt" in manifest else None)
     return manifest["step"], params, opt, manifest.get("extra", {})
-
-
-def _load_sharded(ckpt_dir, step, device, env, cfg):
-    from repro_torch.distributed import comm
-    from repro_torch.distributed.train_step import scatter_state, scatter_tree
-    first = comm.is_first(env.mesh)
-    step, params, opt, extra = (load_checkpoint(ckpt_dir, step, device)
-                                if first else (None, None, None, None))
-    step, extra, has_opt = comm.broadcast_object(
-        (step, extra, opt is not None), env.mesh)
-    if has_opt:
-        params, opt = scatter_state(params, opt, cfg, env, device)
-    else:
-        params = scatter_tree(params, cfg, env, device)
-    return step, params, opt, extra
 
 
 def checkpoint_nbytes(ckpt_dir: str, step: int) -> int:

@@ -98,11 +98,10 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
     return train_step
 
 
-def make_serve_prefill(cfg: ArchConfig, cache_len: int):
-    """prefill(params, tokens) -> (last_logits, caches).  The port's
-    prefill attends over the prompt in one pass (no query chunks)."""
+def make_serve_prefill(cfg: ArchConfig, cache_len: int, q_chunk: int = 1024):
+    """prefill(params, tokens) -> (last_logits, caches)."""
     def serve_prefill(params, tokens):
-        return lm.prefill(params, cfg, tokens, cache_len)
+        return lm.prefill(params, cfg, tokens, cache_len, q_chunk=q_chunk)
     return serve_prefill
 
 

@@ -135,6 +135,27 @@ def test_batch_pspec_and_meshes_equal_reference():
     assert P("data", None) == ("data", None) and repr(P()) == "P()"
 
 
+@pytest.mark.parametrize("kw", [{}, {"moe_impl": "shardmap"},
+                                {"mamba_tp": True},
+                                {"attn_policy": "qtp", "moe_impl": "gspmd",
+                                 "mamba_tp": True}])
+def test_axis_env_equals_reference(kw):
+    """``make_axis_env``'s fields, ``moe_impl`` and ``mamba_tp`` included,
+    and their defaults, as the reference's."""
+    import dataclasses
+    from repro.distributed.sharding import make_axis_env as jmake_axis_env
+    for names, sizes in MESHES:
+        for over_pod in (True, False):
+            j = jmake_axis_env(_RefMesh(names, sizes), over_pod, **kw)
+            t = make_axis_env(MeshShape(names, sizes), over_pod, **kw)
+            fields = [f.name for f in dataclasses.fields(j)
+                      if f.name != "mesh"]
+            assert fields == [f.name for f in dataclasses.fields(t)
+                              if f.name != "mesh"]
+            assert all(getattr(t, f) == getattr(j, f) for f in fields), (
+                names, sizes, kw)
+
+
 def test_placements_and_local_shapes():
     from torch.distributed.tensor import Replicate, Shard
     env = make_axis_env(MeshShape(("pod", "data", "model"), (2, 4, 8)))
@@ -208,7 +229,7 @@ def _layout_rank(rank, device, store, tmp):
     from torch.distributed.tensor import DTensor
     from repro_torch.distributed.train_step import (gather_tree, shard_tree,
                                                     local_part)
-    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.distributed import checkpoint as ckpt
     from repro_torch.training.optimizer import global_norm, init_opt_state
     cfg = _smoke_100m()
     mesh = make_test_mesh(data=2, model=1, pod=2, device_type="cpu")
@@ -224,6 +245,8 @@ def _layout_rank(rank, device, store, tmp):
         assert d.placements == placements(spec, env)
         assert torch.equal(d.full_tensor(), f), name        # DTensor's view
         assert torch.equal(comm.gather(d), f), name
+        g = comm.gather(d, first_only=True)
+        assert torch.equal(g, f) if comm.is_first(mesh) else g is None, name
         out["shapes"].append((name, tuple(d.to_local().shape)))
     want = float(global_norm(full))
     got = float(global_norm(sharded))
@@ -254,6 +277,28 @@ def _layout_rank(rank, device, store, tmp):
     with ctx.use_env(env):                 # 2 rows do not divide over 4
         z = ctx.constrain(x[:2], ("dp", None))
     assert z.placements == placements(P(), env)
+    # a model=2 mesh: shards over data and model, the fsdp-only gather
+    # keeping the model shard
+    from repro_torch.distributed.train_step import compute_params
+    env2 = make_axis_env(make_test_mesh(data=2, model=2, device_type="cpu"))
+    # the reference's jax.make_mesh((2, 2), ("data", "model")): row-major
+    assert env2.mesh.mesh.tolist() == [[0, 1], [2, 3]]
+    assert env2.mesh.mesh_dim_names == ("data", "model")
+    sharded2 = shard_tree(full, cfg, env2)
+    kept = flatten_with_names(compute_params(sharded2, env2))[2]
+    out["shapes_model2"] = []
+    for name, f, d, k in zip(names, fl, flatten_with_names(sharded2)[2],
+                             kept):
+        spec = param_pspec(name, tuple(f.shape), cfg, env2)
+        assert tuple(d.to_local().shape) == local_shape(f.shape, spec, env2)
+        assert d.placements == placements(spec, env2)
+        assert torch.equal(comm.gather(d), f), name
+        g = comm.gather(d, first_only=True)
+        assert (torch.equal(g, f) if comm.is_first(env2.mesh)
+                else g is None), name
+        model_only = P(*[e if e == "model" else None for e in spec])
+        assert torch.equal(k, local_part(f, model_only, env2)), name
+        out["shapes_model2"].append((name, tuple(d.to_local().shape)))
     return out
 
 
@@ -271,6 +316,13 @@ def test_layout_on_four_cpu_ranks():
     for r in ranks:
         got, want = r["norm"]
         assert abs(got - want) <= 1e-6 * want          # replicas counted once
+    env2 = make_axis_env(MeshShape(("data", "model"), (2, 2)))
+    for name, shape in ranks[0]["shapes_model2"]:
+        t = dict(zip(*flatten_with_names(full)[::2]))[name]
+        spec = param_pspec(name, tuple(t.shape), cfg, env2)
+        assert shape == local_shape(t.shape, spec, env2)
+        if name.endswith(("wq", "wi", "wd")):          # data x model
+            assert np.prod(shape) * 4 == t.numel(), name
 
 
 def _step_rank(rank, device, store, tmp, dp, case_path, tcfg):
@@ -351,4 +403,5 @@ def test_chip_smoke_distributed_phase_rehearses_on_the_cpu():
     assert line["gloo_collectives"] == {
         "device": "cpu", "all_gather_into_tensor": True,
         "reduce_scatter_tensor": True, "all_reduce": True, "broadcast": True,
-        "all_gather": True, "reduce": True}
+        "all_gather": True, "reduce": True, "gather": True,
+        "all_reduce_max": True}
