@@ -125,19 +125,40 @@ Phases, each of which raises on failure (exit code 1, no result line):
    output and gradients within ``TP_TOL`` of the largest magnitude of one
    rank's ``moe_mlp`` on each data shard / on the whole batch; (d) one
    zamba2 Mamba layer at full width with ``mamba_tp``: output, final
-   state and gradients likewise.  One ``[smoke] tensor_parallel:`` line
+   state and gradients likewise; (e) one xlstm-1.3b mLSTM layer at full
+   width (d 2048, 4 heads, d_inner 4096), whole heads on each rank:
+   output, final state and gradients likewise.  A second spawn of 8
+   ranks as data=1 x model=8: (e) the same mLSTM layer, half a head on
+   each rank, and (f) musicgen-large's output head and loss at full width
+   (D 2048, 4 x 2,048 codebooks, each over 2 ranks): loss and gradients
+   likewise.  One ``[smoke] tensor_parallel:`` line
    per case (wall times, per-rank state bytes and peak memory, rank 0's
    collectives by kind, errors beside their tolerances) and one line of
    the collectives gloo takes on the data and model groups.  No kernel is
    on this path (the step attends densely, as the reference does): every
    rank's launches are added up and must be 0;
-11. print one JSON line with every kernel's numbers, the card line again,
+11. the dry-run tools (*dryrun*, ``launch/dryrun``, ``distributed/
+   {op_analysis,roofline,inspect_cell}``), on the CPU, meta tensors and a
+   fake process group; no kernel launches.  ``HBM_PER_CHIP`` within 1% of
+   the card's memory.  (a) The sweep: every arch x train_4k, prefill_32k
+   and decode_32k on the 16x16 and the 2x16x16 mesh, in parallel
+   processes; every cell must end ``ok``; one line per cell (status,
+   trace_s, dominant term, step_time_lb, fits_hbm).  (b) The dry run of
+   phase 10's gemma3-1b train case (data=2 x model=2, ``v1`` and
+   ``qtp``): its collective calls and bytes by kind must equal rank 0's
+   measured step, its dot FLOPs rank 1's ``FlopCounterMode`` count; its
+   peak bytes beside rank 1's measured peak.  (c) The roofline of phase
+   8(a)'s one-card gemma3-1b step beside its measured step time.  (d)
+   ``inspect_cell``'s three tables for gemma3-1b decode_32k.  Roofline
+   numbers are model values for the H100's constants, not measurements;
+12. print one JSON line with every kernel's numbers, the card line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Launches made in phase 3 and in phase 4's checks are not in the counts:
 the counts are reset just before the serve run and read just after it.
-Phases 5, 6, each model of 7, 8, 9 and 10 reset them before they start and
-print their own (phase 9 adds in those of rank 0's process).
+Phases 5, 6, each model of 7, 8, 9, 10 and 11 reset them before they start
+and print their own (phase 9 adds in those of rank 0's process, phase 10
+every rank's).
 """
 from __future__ import annotations
 
@@ -1502,6 +1523,7 @@ def train_full(torch, dev, smoke=False) -> dict:
             "fp32_peak_share": fl / step_s / FP32_FLOPS_PER_S,
             "peak_device_bytes": peak_bytes(torch, dev)}
     print("[smoke] train (a): " + json.dumps(line))
+    line["config"] = (run.cfg, run.tcfg)        # for phase 11(c)
     return line
 
 
@@ -1823,12 +1845,13 @@ def distributed_phase(torch, dev, smoke=False, fork_pages=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def tensor_parallel_phase(torch, dev, smoke=False) -> list:
+def tensor_parallel_phase(torch, dev, smoke=False):
     """Phase 10: ``launch/tensor_parallel.run`` on ``dev`` (4 ranks, gloo,
-    data=2 x model=2; at smoke size the smoke configs) and its checks;
-    every rank's kernel counts are added to this process's, for
-    ``run_phase``, and must be 0: no kernel is on this path.  Prints one
-    line per case and returns the cases."""
+    data=2 x model=2, then 8 as data=1 x model=8; at smoke size the smoke
+    configs) and its checks; every rank's kernel counts are added to this
+    process's, for ``run_phase``, and must be 0: no kernel is on this
+    path.  Prints one line per case and returns the run (its ``cases``
+    and every rank's ``ranks`` record)."""
     from repro_torch.kernels import dispatch
     from repro_torch.launch import tensor_parallel
     t0 = time.perf_counter()
@@ -1879,17 +1902,160 @@ def tensor_parallel_phase(torch, dev, smoke=False) -> list:
     print("[smoke] tensor_parallel collectives gloo takes, by group: "
           + json.dumps({"device": dev.type, **r.collectives}))
     for c in r.cases:
-        ranks = [k[c["case"]] for k in r.ranks]
+        ranks = [k[c["case"]] for k in r.ranks if c["case"] in k]
         print("[smoke] tensor_parallel: " + json.dumps({
-            **c, "mesh": {"data": 2, "model": 2},
-            "state_bytes": [k["state_bytes"] for k in ranks],
+            **c, "state_bytes": [k["state_bytes"] for k in ranks],
+            "flops": [k["flops"] for k in ranks],
             "peak_device_bytes": [k["peak_device_bytes"] for k in ranks],
             "peak_reserved_bytes": [k["peak_reserved_bytes"] for k in ranks],
             "comm": ranks[0]["comm"]}))
     if fail:
         raise AssertionError("tensor_parallel: " + "; ".join(fail))
     print(f"[smoke] tensor_parallel: {len(r.cases)} cases in {wall:.1f} s")
-    return r.cases
+    return r
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dry-run tools
+# ---------------------------------------------------------------------------
+
+DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRY_WORKERS = 6
+DRY_INSPECT = ("gemma3-1b", "decode_32k")
+
+
+def dry_sweep(smoke=False) -> list:
+    """(a): every arch x ``DRY_SHAPES`` on both production meshes (at smoke
+    size, two decode cells), ``DRY_WORKERS`` cells at a time; prints one
+    line per cell and fails unless every applicable cell is ok."""
+    from repro_torch.launch import dryrun
+    cells = ([("gemma3-1b", "decode_32k", False),
+              ("musicgen-large", "decode_32k", True)] if smoke else
+             [(a, s, mp) for mp in (False, True) for a in dryrun.ARCHS
+              for s in DRY_SHAPES])
+    t0 = time.perf_counter()
+    out, bad = [], []
+    for res in dryrun.sweep(cells, workers=DRY_WORKERS):
+        line = {k: res.get(k) for k in (
+            "arch", "shape", "mesh", "status", "trace_s", "step_time_lb",
+            "fits_hbm", "bytes_per_device_total", "roofline_fraction",
+            "useful_flops_ratio", "collective_bytes_per_device")}
+        line["dominant"] = res.get("roofline", {}).get("dominant")
+        line["flops_per_device"] = res.get("cost_analysis", {}).get(
+            "flops_per_device")
+        line["traffic_bytes_per_device"] = res.get("cost_analysis", {}).get(
+            "bytes_per_device")
+        if res["status"] != "ok":
+            line["error"] = res.get("error", res.get("reason"))
+            bad.append(line)
+        print("[smoke] dryrun cell (model values, H100 constants): "
+              + json.dumps(line))
+        out.append(res)
+    print(f"[smoke] dryrun sweep: {len(out)} cells in "
+          f"{time.perf_counter() - t0:.1f} s on {DRY_WORKERS} processes")
+    if bad:
+        raise AssertionError(f"dryrun: cells not ok: {bad}")
+    return out
+
+
+def dry_vs_measured(tp) -> list:
+    """(b): the dry run of phase 10's gemma3-1b train case under each
+    policy, against ``tp`` (phase 10's run): collectives by kind (calls
+    and bytes) equal to rank 0's measured step 0, dot FLOPs equal to rank
+    1's ``FlopCounterMode`` count of it; peak bytes beside rank 1's."""
+    from repro_torch.distributed import op_analysis
+    from repro_torch.distributed.sharding import make_axis_env
+    from repro_torch.launch import dryrun, tensor_parallel
+    smoke = "smoke" in tp.cases[0]["case"]
+    gemma = tensor_parallel.configs(smoke)[0]
+    sz = tensor_parallel.sizes(smoke)
+    B, S = sz["train"]
+    out, fail = [], []
+    for policy in tensor_parallel.POLICIES:
+        name = f"a:{gemma.name}:{policy}"
+        case = next(c for c in tp.cases if c["case"] == name)
+        rank1 = tp.ranks[dryrun.RANK][name]
+        t0 = time.perf_counter()
+        with dryrun.fake_group(tensor_parallel.WORLD):
+            env = make_axis_env(dryrun.mesh_of(
+                {"data": tensor_parallel.DATA,
+                 "model": tensor_parallel.MODEL}), attn_policy=policy)
+            spec = dryrun.step_spec(gemma, "train", env, B, S,
+                                    tensor_parallel._tcfg(sz))
+            an = op_analysis.analyze(spec["fn"], *spec["args"],
+                                     read_bytes=spec["read_bytes"])
+        measured = {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                    for k, v in case["steps"][0]["step_comm"].items()}
+        line = {"case": name, "trace_s": time.perf_counter() - t0,
+                "collectives_dry": an["port_collectives"],
+                "collectives_equal": an["port_collectives"] == measured,
+                "dot_flops_dry": an["dot_flops"],
+                "flops_measured_rank1": rank1["flops"],
+                "flops_equal": an["dot_flops"] == rank1["flops"],
+                "peak_bytes_dry": an["peak_bytes"],
+                "peak_device_bytes_rank1": rank1["peak_device_bytes"]}
+        if rank1["peak_device_bytes"]:
+            line["peak_gap"] = (an["peak_bytes"]
+                                / rank1["peak_device_bytes"] - 1.0)
+        if not (line["collectives_equal"] and line["flops_equal"]):
+            fail.append(f"{name}: dry {an['port_collectives']} "
+                        f"{an['dot_flops']} measured {measured} "
+                        f"{rank1['flops']}")
+        print("[smoke] dryrun (b) vs phase 10: " + json.dumps(line))
+        out.append(line)
+    if fail:
+        raise AssertionError("dryrun (b): " + "; ".join(fail))
+    return out
+
+
+def dry_roofline(train_line) -> dict:
+    """(c): the roofline, for the H100's constants, of phase 8(a)'s
+    one-card gemma3-1b step (mesh 1x1), counted on meta tensors, beside
+    the step time phase 8(a) measured."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import op_analysis, roofline
+    from repro_torch.models import flops, lm
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    cfg, tcfg = train_line["config"]
+    B, S = train_line["batch"], train_line["seq"]
+    params = lm.init_params(cfg, torch.Generator(), "meta")
+    tok = torch.empty((B, S), dtype=torch.int32, device="meta")
+    an = op_analysis.analyze(make_train_step(cfg, tcfg), params,
+                             init_opt_state(params), tok, tok)
+    rl = roofline.roofline(an["dot_flops"], an["traffic_bytes"], 0.0, 1)
+    mf = flops.model_flops(cfg, ShapeConfig("train", S, B, "train"))
+    line = {"note": "model values for H100 constants (bf16 dense peak); "
+                    "the step runs float32 with TF32 off",
+            "arch": cfg.name, "batch": B, "seq": S,
+            "dot_flops": an["dot_flops"], "traffic_bytes": an["traffic_bytes"],
+            "peak_bytes": an["peak_bytes"], "roofline": rl.to_dict(),
+            "step_time_lb": rl.step_time_lb,
+            "roofline_fraction": rl.fraction_of_roofline(mf),
+            "compute_s_at_fp32_peak": an["dot_flops"] / FP32_FLOPS_PER_S,
+            "measured_step_s": train_line["mean_step_s_2_4"],
+            "measured_peak_device_bytes": train_line["peak_device_bytes"]}
+    print("[smoke] dryrun (c) one-card train step: " + json.dumps(line))
+    return line
+
+
+def dryrun_phase(torch, dev, tp, train_line, smoke=False) -> dict:
+    """Phase 11: (a)-(d) above; ``tp`` phase 10's run, ``train_line``
+    phase 8(a)'s."""
+    from repro_torch.distributed import inspect_cell, roofline
+    total = (torch.cuda.get_device_properties(dev).total_memory
+             if dev.type == "cuda" else roofline.HBM_PER_CHIP)
+    hbm = {"HBM_PER_CHIP": roofline.HBM_PER_CHIP, "card_total_memory": total,
+           "gap": roofline.HBM_PER_CHIP / total - 1.0}
+    print("[smoke] dryrun HBM_PER_CHIP: " + json.dumps(hbm))
+    if abs(hbm["gap"]) > 0.01:
+        raise AssertionError(f"dryrun: HBM_PER_CHIP off the card's: {hbm}")
+    out = {"hbm": hbm, "a": dry_sweep(smoke), "b": dry_vs_measured(tp),
+           "c": dry_roofline(train_line)}
+    print("[smoke] dryrun (d) inspect_cell, per device, model values:")
+    inspect_cell.inspect(*DRY_INSPECT, top=8)
+    return out
 
 
 def run_phase(torch, name, fn, required, bulk=()):
@@ -1991,9 +2157,14 @@ def main() -> int:
         torch, "distributed", lambda: distributed_phase(
             torch, dev, fork_pages=train["d"]["fork"]["pages_rdma"]),
         required=COPY_KERNELS, bulk=BULK_KERNELS)
-    _, tp_launches = run_phase(
+    tp, tp_launches = run_phase(
         torch, "tensor_parallel", lambda: tensor_parallel_phase(torch, dev),
         required=())
+    _, dry_launches = run_phase(
+        torch, "dryrun", lambda: dryrun_phase(torch, dev, tp, train["a"]),
+        required=())
+    if any(dry_launches.values()):
+        raise AssertionError(f"dryrun launched kernels: {dry_launches}")
 
     kernels = []
     for name in KERNELS:
@@ -2006,6 +2177,7 @@ def main() -> int:
             "train_launches": train_launches[name],
             "distributed_launches": dist_launches[name],
             "tensor_parallel_launches": tp_launches[name],
+            "dryrun_launches": dry_launches[name],
             "routes": {k.split(".", 1)[1]: v for k, v in routes.items()
                        if k.split(".", 1)[0] == name},
             "max_abs_err": main_row["max_abs_err"],

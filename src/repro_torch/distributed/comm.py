@@ -24,9 +24,11 @@ through this module only:
   ``copy_to_model`` (identity forward, all-reduce of the gradient) and
   ``reduce_from_model`` (all-reduce forward, identity backward), both
   ``tp_all_reduce``; ``gather_model`` / ``slice_model`` along one dim
-  (``tp_all_gather`` forward or backward); ``all_reduce_max``
-  (``tp_all_reduce_max``, no gradient); ``sum_over_model``, a partial
-  gradient's sum in the step (``tp_grad_all_reduce``);
+  (``tp_all_gather`` forward or backward); ``gather_shared``
+  (``tp_all_gather`` forward, ``tp_reduce_scatter`` backward);
+  ``all_reduce_max`` (``tp_all_reduce_max``, no gradient);
+  ``sum_over_model``, a partial gradient's sum in the step
+  (``tp_grad_all_reduce``);
 - ``gather_counts``: the MoE's per-expert counts of every data shard of a
   microbatch (``moe_counts``, an all-gather over the batch axes).
 
@@ -38,9 +40,10 @@ adds to ``stats[kind]``: its calls, the bytes of its full tensor on this
 rank (an all-gather's output, a reduce-scatter's input, the tensor of an
 all-reduce or a broadcast, an object broadcast's pickle; of those, a ring
 moves ``(k-1)/k`` in and out of each of ``k`` ranks, twice for an
-all-reduce), and its wall seconds, synced on a CUDA device.  Not counted:
-what creating a ``DeviceMesh``'s groups and ``probe`` exchange (set-up, a
-few small messages).
+all-reduce), and its wall seconds, synced on a CUDA device.  Under the
+dry run (``op_analysis``, ``meter``) a call may count for several.  Not
+counted: what creating a ``DeviceMesh``'s groups and ``probe`` exchange
+(set-up, a few small messages).
 """
 from __future__ import annotations
 
@@ -62,16 +65,27 @@ def snapshot() -> dict:
     return {k: dict(v) for k, v in stats.items()}
 
 
-def _timed(kind, device, call, nbytes: int) -> None:
-    """Runs one collective, ``call()``, into ``stats[kind]``."""
+# The dry run's meter (``op_analysis.analyze``), or None: called with each
+# collective's kind and the bytes of its result on this rank (an
+# all-gather's output, a reduce-scatter's part, an all-reduce's tensor);
+# returns how many times to count the call (more than once for a loop run
+# once for its trips, ``models/scan.py``).
+meter = None
+
+
+def _timed(kind, device, call, nbytes: int, result: int = None) -> None:
+    """Runs one collective, ``call()``, into ``stats[kind]``; ``result``:
+    its result's bytes where they are not ``nbytes``."""
     device = torch.device(device)
     t0 = time.perf_counter()
     call()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    n = 1 if meter is None else meter(kind, nbytes if result is None
+                                      else result)
     s = stats[kind]
-    s["calls"] += 1
-    s["bytes"] += nbytes
+    s["calls"] += n
+    s["bytes"] += n * nbytes
     s["seconds"] += time.perf_counter() - t0
 
 
@@ -142,7 +156,7 @@ def reduce_mean(full, placements, mesh, batch_dims) -> torch.Tensor:
                                dtype=out.dtype, device=out.device)
             _timed("reduce_scatter", out.device,
                    lambda: dist.reduce_scatter_tensor(part, src, group=group),
-                   _nbytes(src))
+                   _nbytes(src), _nbytes(part))
             out = part
         else:
             out = out.contiguous()
@@ -212,6 +226,17 @@ def _all_gather(x, tp, dim) -> torch.Tensor:
     return buf.movedim(0, dim)
 
 
+def _reduce_scatter(x, tp, dim) -> torch.Tensor:
+    """This rank's part along ``dim`` of the sum over ``model`` of every
+    rank's ``x``."""
+    src = x.movedim(dim, 0).contiguous()
+    part = torch.empty((src.shape[0] // tp.size,) + tuple(src.shape[1:]),
+                       dtype=src.dtype, device=src.device)
+    _timed("tp_reduce_scatter", src.device, lambda: dist.reduce_scatter_tensor(
+        part, src, group=tp.group), _nbytes(src), _nbytes(part))
+    return part.movedim(0, dim)
+
+
 def _own(x, tp, dim) -> torch.Tensor:
     n = x.shape[dim] // tp.size
     return x.narrow(dim, tp.rank * n, n)
@@ -249,6 +274,17 @@ class _GatherModel(torch.autograd.Function):
         return _own(g, ctx.tp, ctx.dim).contiguous(), None, None
 
 
+class _GatherShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return _all_gather(x, tp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.tp, ctx.dim), None, None
+
+
 class _SliceModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp, dim):
@@ -276,6 +312,14 @@ def gather_model(x, tp, dim) -> torch.Tensor:
     """The ranks' parts of a tensor split along ``dim`` over ``model``,
     concatenated in rank order; the gradient's own part comes back."""
     return _GatherModel.apply(x, tp, dim % x.dim())
+
+
+def gather_shared(x, tp, dim) -> torch.Tensor:
+    """``gather_model`` for a whole tensor that each rank uses for its own
+    share of the work only, so that each rank's gradient of it is a part:
+    the gradient is summed over ``model`` and this rank's part kept (a
+    reduce-scatter, ``tp_reduce_scatter``)."""
+    return _GatherShared.apply(x, tp, dim % x.dim())
 
 
 def slice_model(x, tp, dim) -> torch.Tensor:

@@ -8,8 +8,9 @@ Policy:
     head_dim (partial-sum contractions); else replicate heads.
   * MLP: F_ff over model, D over fsdp.  MoE: experts over model (EP).
   * embeddings: vocab over model, d_model over fsdp.
-  * Mamba/xLSTM in/out projections: fsdp only in the baseline (splitting
-    the fused in_proj would unlock TP).
+  * Mamba in/out projections: fsdp only in the baseline (splitting the
+    fused in_proj would unlock TP).  mLSTM projections: over model by
+    columns (``w_up``, q/k/v) and rows (``w_down``).
   * activations: batch over (pod, data); batch-1 long-context decode shards
     the KV sequence axis instead (sequence-parallel decode).
 
@@ -198,8 +199,7 @@ def param_pspec(path: str, shape, cfg: ArchConfig, env: AxisEnv) -> P:
             return lead([None, F])
         return P()
 
-    # ---- xLSTM (placed over model at rest, computed whole:
-    # ``whole_over_model``) ----
+    # ---- xLSTM ----
     if owner == "mlstm":
         if leaf == "w_up":
             return lead([F, m]) if _div(shape[-1], ms) else lead([F, None])
@@ -248,12 +248,18 @@ def moe_split(cfg: ArchConfig, env: AxisEnv) -> bool:
     return _div(cfg.moe_experts, env.msize)
 
 
-def whole_over_model(path: str) -> bool:
-    """The mLSTM leaves, placed over ``model`` by ``param_pspec`` but
-    computed whole: the reference leaves their split to GSPMD, which this
-    port does not partition, so the step gathers them over ``model`` and
-    cuts their gradients back to the shard."""
-    return "mlstm" in path.split("/")
+def mlstm_split(cfg: ArchConfig, spec, env: AxisEnv) -> bool:
+    """Whether an mLSTM block splits its value columns over ``model``:
+    when ``model`` divides d_inner (``param_pspec`` then splits its
+    ``w_up``, ``wq``/``wk``/``wv`` and ``w_down``), each rank computes
+    d_inner / msize of them, whole heads or a part of one."""
+    d_inner, H, ms = spec.expand * cfg.d_model, spec.num_heads, env.msize
+    if ms == 1 or not _div(d_inner, ms):
+        return False
+    if not (_div(H, ms) or _div(ms, H)):
+        raise NotImplementedError(
+            f"mLSTM: {ms} ranks' value columns straddle {H} heads")
+    return True
 
 
 def model_partial(path: str, shape, cfg: ArchConfig, env: AxisEnv) -> bool:
@@ -261,10 +267,12 @@ def model_partial(path: str, shape, cfg: ArchConfig, env: AxisEnv) -> bool:
     that is split over it, so that each rank's gradient of it is a part
     and the sum over ``model`` is the whole: q/k norms where Q heads are
     split, K/V projections under "qtp", the MoE router under expert
-    parallelism, every leaf of a split Mamba block.  It reads the same
-    plans the layers split by (``attn_plan``, ``moe_split``,
-    ``mamba_split``); a layer that splits by anything else must add its
-    rule here, or its replicated leaves' gradients come out as parts."""
+    parallelism, every leaf of a split Mamba block, and the replicated
+    leaves of a split mLSTM block (the conv, the gates, the norm).  It
+    reads the same plans the layers split by (``attn_plan``,
+    ``moe_split``, ``mamba_split``, ``mlstm_split``); a layer that splits
+    by anything else must add its rule here, or its replicated leaves'
+    gradients come out as parts."""
     if env.msize == 1 or env.model in [
             a for e in param_pspec(path, shape, cfg, env)
             for a in spec_axes(e)]:
@@ -276,9 +284,10 @@ def model_partial(path: str, shape, cfg: ArchConfig, env: AxisEnv) -> bool:
         return attn_plan(cfg, env) in ("heads", "qtp")
     if owner == "moe":
         return leaf == "router" and moe_split(cfg, env)
-    if "mamba" in parts:        # groups/<g>/blocks/<b>/mamba/...
+    if "mamba" in parts or "mlstm" in parts:  # groups/<g>/blocks/<b>/...
         spec = cfg.groups[int(parts[1])].unit[int(parts[3])]
-        return mamba_split(cfg, spec, env)
+        split = mamba_split if "mamba" in parts else mlstm_split
+        return split(cfg, spec, env)
     return False
 
 

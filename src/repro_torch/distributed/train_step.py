@@ -11,16 +11,14 @@ shardings; here the step makes them explicitly, all through ``comm``:
 1. take this rank's rows of the global batch: in each microbatch, its
    data shard of the reference's microbatch (``batch_rows``);
 2. all-gather every param over the fsdp axes, leaving its ``model``
-   shard local (the mLSTM leaves, which the model computes whole, are
-   gathered over ``model`` too);
+   shard local;
 3. run the single-device loss and gradient
    (``training.train_step.make_loss_and_grads``) on the local rows, with
    the env installed (``ctx.use_env``): the layers split their work over
    ``model`` (``models/layers.py``) and the MoE takes its capacity over
    the whole microbatch;
 4. sum over ``model`` the gradients that are parts there
-   (``sharding.model_partial``), and cut a gathered mLSTM leaf's to its
-   shard;
+   (``sharding.model_partial``);
 5. reduce-scatter each gradient to its param's placements, as a mean over
    the batch axes (an all-reduce for a leaf replicated over them);
 6. the global norm over the shards, one all-reduce
@@ -46,8 +44,7 @@ from repro_torch.distributed import comm, ctx
 from repro_torch.distributed.sharding import (P, AxisEnv, batch_pspec,
                                               cache_pspec, local_shape,
                                               model_partial, param_pspec,
-                                              placements, spec_axes,
-                                              whole_over_model)
+                                              placements, spec_axes)
 from repro_torch.models import lm
 from repro_torch.training.optimizer import adamw_update
 from repro_torch.training.schedule import warmup_cosine
@@ -152,37 +149,25 @@ def batch_rows(t, microbatches: int, env: AxisEnv):
 
 def compute_params(params, env: AxisEnv):
     """The leaves as the layers compute with them under ``env``: every
-    DTensor gathered over the fsdp axes, its ``model`` shard kept (an
-    mLSTM leaf gathered whole); plain leaves as they are.  Every rank of
-    the mesh calls it."""
-    names, paths, leaves = flatten_with_names(params)
-    return unflatten_from_paths(paths, [
-        comm.gather(x, axes=None if whole_over_model(n) else env.fsdp)
-        for n, x in zip(names, leaves)])
-
-
-def _model_shard(g, spec, env: AxisEnv):
-    """This rank's ``model`` shard of a gradient that is whole over it."""
-    only = P(*[e if env.model in spec_axes(e) else None for e in spec])
-    return local_part(g, only, env)
+    DTensor gathered over the fsdp axes, its ``model`` shard kept; plain
+    leaves as they are.  Every rank of the mesh calls it."""
+    _, paths, leaves = flatten_with_names(params)
+    return unflatten_from_paths(paths, [comm.gather(x, axes=env.fsdp)
+                                        for x in leaves])
 
 
 def shard_grads(names, leaves, grads, cfg: ArchConfig, env: AxisEnv):
     """Each param's gradient (as the layers computed it from
     ``compute_params``, on this rank's rows) laid out as the param
-    DTensor is: summed over ``model`` where it is a part there, cut to
-    the ``model`` shard where it is whole, then the mean over the batch
-    axes reduce-scattered to the param's placements.  ``grads`` is
-    emptied as it goes."""
+    DTensor is: summed over ``model`` where it is a part there, then the
+    mean over the batch axes reduce-scattered to the param's placements.
+    ``grads`` is emptied as it goes."""
     tp = ctx.tp_of(env)
     batch_dims = [i for i, a in enumerate(env.axes) if a in env.dp]
     out = []
     for i, (name, x) in enumerate(zip(names, leaves)):
         g, grads[i] = grads[i], None
-        shape = tuple(x.shape)
-        if tp is not None and whole_over_model(name):
-            g = _model_shard(g, param_pspec(name, shape, cfg, env), env)
-        elif tp is not None and model_partial(name, shape, cfg, env):
+        if tp is not None and model_partial(name, tuple(x.shape), cfg, env):
             g = comm.sum_over_model(g, tp)
         out.append(DTensor.from_local(
             comm.reduce_mean(g, x.placements, env.mesh, batch_dims),
@@ -242,6 +227,17 @@ def _laid_out(local, spec, env: AxisEnv, shape):
                               placements(spec, env), run_check=False)
 
 
+def _whole_cache_shape(name, local, cfg, batch):
+    """The whole shape of a cache leaf of which this rank holds ``local``
+    (``cache_pspec`` splits the batch, and an attention cache's heads or
+    head_dim: its whole K and hd are the config's)."""
+    shape = list(local)
+    shape[1] = batch
+    if name.split("/")[-1] in ("k", "v"):
+        shape[-2:] = [cfg.num_kv_heads, cfg.head_dim]
+    return tuple(shape)
+
+
 def _serve_out(cfg, env, logits, caches, batch, shapes):
     """Logits (B, V) over the data axes and caches by ``cache_pspec``;
     ``shapes`` the caches' whole shapes."""
@@ -265,10 +261,10 @@ def make_sharded_serve_prefill(cfg: ArchConfig, cache_len: int,
         with ctx.use_env(env, split_batch=split):
             logits, caches = lm.prefill(compute_params(params, env), cfg, tok,
                                         cache_len, q_chunk=q_chunk)
-        whole = lm.init_cache(cfg, tokens.shape[0], cache_len, device="meta")
-        return _serve_out(cfg, env, logits, caches, tokens.shape[0],
-                          [tuple(m.shape) for m in
-                           flatten_with_names(whole)[2]])
+        names, _, leaves = flatten_with_names(caches)
+        return _serve_out(cfg, env, logits, caches, tokens.shape[0], [
+            _whole_cache_shape(n, c.shape, cfg, tokens.shape[0])
+            for n, c in zip(names, leaves)])
     return serve_prefill
 
 

@@ -24,13 +24,25 @@ rank's run of the same function on the same inputs:
     1.0: outputs and the gradients of the input and of every param of a
     fixed linear probe of the output;
 (d) one zamba2 Mamba layer at full width (``--smoke``: smoke) with
-    ``mamba_tp``: output, final state and gradients.
+    ``mamba_tp``: output, final state and gradients;
+(e) one xlstm mLSTM layer at full width (``--smoke``: smoke), its value
+    columns split over ``model`` (whole heads): output, final state and
+    gradients.
+
+A second spawn of 8 ranks, laid out as data=1 x model=8 (``_rank8``):
+
+(e) the same mLSTM layer, half a head on each rank (xlstm-1.3b's 4 heads
+    of 1,024 over 8 ranks);
+(f) musicgen-large's output head and loss at full width (``--smoke``:
+    smoke), its 4 codebooks each over 2 ranks: loss and the gradients of
+    the hidden states and of the head.
 
 Rank 0's record holds each case's largest errors with the scale they are
 relative to; the checks against tolerances are ``chip_smoke.py``'s.
 Every rank's record holds, per case, its state bytes, its peak device
-memory and its collectives (``comm.stats``), and its kernel launches over
-the whole run (``dispatch``).
+memory and its collectives (``comm.stats``), for (a) the FLOPs of its
+step 0 (``FlopCounterMode``), and its kernel launches over the whole run
+(``dispatch``).
 
   PYTHONPATH=src python -m repro_torch.launch.tensor_parallel --smoke \\
       --device cpu
@@ -38,6 +50,7 @@ the whole run (``dispatch``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from types import SimpleNamespace
@@ -45,12 +58,14 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.base import GroupSpec, get_arch, reduce_for_smoke
 from repro_torch.core.descriptor import (flatten_with_names,
                                          unflatten_from_paths)
 from repro_torch.distributed import comm, ctx
-from repro_torch.distributed.sharding import P, make_axis_env, placements
+from repro_torch.distributed.sharding import (P, make_axis_env, mesh_axes,
+                                              placements)
 from repro_torch.distributed.train_step import (
     batch_rows, compute_params, local_nbytes, make_sharded_serve_decode,
     make_sharded_serve_prefill, make_sharded_train_step, shard_grads,
@@ -59,14 +74,17 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch.elastic import spawn, state_errors
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import lm
+from repro_torch.models.layers import chunked_xent, init_embed
 from repro_torch.models.moe import count_dropped, init_moe, moe_mlp
 from repro_torch.models.ssm import init_mamba, mamba_forward
+from repro_torch.models.xlstm import init_mlstm, mlstm_forward
 from repro_torch.training.data import TokenStream
 from repro_torch.training.optimizer import init_opt_state
 from repro_torch.training.train_step import TrainConfig, make_train_step
 
 WORLD = 4
 DATA, MODEL = 2, 2
+WIDE = 8                 # the second spawn: data=1 x model=8
 POLICIES = ("v1", "qtp")
 MOE_IMPLS = ("shardmap", "gspmd")
 MOE_FACTORS = (1.25, 1.0)
@@ -92,11 +110,15 @@ def sizes(smoke: bool) -> dict:
                 serve=(2, 64, 96, 8, 32), layer=(2, 512))
 
 
+ARCHS = ("gemma3-1b", "moonshot-v1-16b-a3b", "zamba2-2.7b", "xlstm-1.3b",
+         "musicgen-large")
+
+
 def configs(smoke: bool):
-    """(gemma3-1b, moonshot-v1-16b-a3b, zamba2-2.7b), float32: whole, or
-    at smoke size (gemma cut to one window and one global layer)."""
+    """``ARCHS``' configs, float32: whole, or at smoke size (gemma cut to
+    one window and one global layer)."""
     out = []
-    for arch in ("gemma3-1b", "moonshot-v1-16b-a3b", "zamba2-2.7b"):
+    for arch in ARCHS:
         cfg = get_arch(arch)
         if smoke:
             if arch == "gemma3-1b":
@@ -113,17 +135,20 @@ def main(argv=None):
 
 
 def run(argv=None) -> SimpleNamespace:
-    """Spawn the 4 ranks and run every case; returns rank 0's case records
-    (``cases``), the collectives the backend takes (``collectives``),
-    ``ranks``, every rank's per-case state bytes, peak memory and
-    collectives, and ``kernels``, every rank's kernel launches, pages and
-    routes."""
+    """Spawn the 4 ranks, then the 8, and run every case; returns rank 0's
+    case records (``cases``), the collectives the backend takes on the
+    first spawn's groups (``collectives``), ``ranks``, every rank's
+    per-case state bytes, peak memory and collectives (the two spawns'
+    rank ``i`` in one dict), and ``kernels``, every rank's kernel
+    launches, pages and routes."""
     args = parse_args(argv)
-    ranks = spawn(_rank, (args,), WORLD, args.backend, args.device)
-    return SimpleNamespace(cases=ranks[0]["cases"],
-                           collectives=ranks[0]["collectives"],
-                           ranks=[r["per_case"] for r in ranks],
-                           kernels=[r["kernels"] for r in ranks])
+    four = spawn(_rank, (args,), WORLD, args.backend, args.device)
+    eight = spawn(_rank8, (args,), WIDE, args.backend, args.device)
+    ranks = [{**(four[i]["per_case"] if i < WORLD else {}),
+              **eight[i]["per_case"]} for i in range(WIDE)]
+    return SimpleNamespace(cases=four[0]["cases"] + eight[0]["cases"],
+                           collectives=four[0]["collectives"], ranks=ranks,
+                           kernels=[r["kernels"] for r in four + eight])
 
 
 def _sync(device):
@@ -146,16 +171,16 @@ def _release(device):
         torch.cuda.empty_cache()
 
 
-def _rank(rank, device, store, tmp, args) -> dict:
+def _start(device):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dispatch.reset_launches()
-    mesh = make_test_mesh(DATA, MODEL, device_type=device.type)
-    out = {"cases": [], "per_case": {},
-           "collectives": {a: comm.probe(mesh.get_group(a), device)
-                           for a in ("data", "model")}}
-    gemma, moon, zamba = configs(args.smoke)
-    sz = sizes(args.smoke)
+
+
+def _runner(rank, device, mesh, out):
+    """``case(name, fn)``: runs one case on this rank into ``out``: its
+    record (rank 0), state bytes, peak memory and collectives."""
+    sizes_ = dict(mesh_axes(mesh))
 
     def case(name, fn):
         comm.reset()
@@ -169,12 +194,33 @@ def _rank(rank, device, store, tmp, args) -> dict:
         wall = time.perf_counter() - t0
         out["per_case"][name] = {
             "rank": rank, "state_bytes": state_bytes, "comm": comm.snapshot(),
+            "flops": rec.pop("flops", None),
             "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
                                   if device.type == "cuda" else None),
             "peak_reserved_bytes": (torch.cuda.max_memory_reserved(device)
                                     if device.type == "cuda" else None)}
         if rank == 0:
-            out["cases"].append({"case": name, "wall_s": wall, **rec})
+            out["cases"].append({"case": name, "mesh": sizes_, "wall_s": wall,
+                                 **rec})
+    return case
+
+
+def _finish(out):
+    out["kernels"] = {"launches": dict(dispatch.launches),
+                      "pages": dict(dispatch.pages_moved),
+                      "routes": dict(dispatch.routes)}
+    return out
+
+
+def _rank(rank, device, store, tmp, args) -> dict:
+    _start(device)
+    mesh = make_test_mesh(DATA, MODEL, device_type=device.type)
+    out = {"cases": [], "per_case": {},
+           "collectives": {a: comm.probe(mesh.get_group(a), device)
+                           for a in ("data", "model")}}
+    gemma, moon, zamba, xlstm, _ = configs(args.smoke)
+    sz = sizes(args.smoke)
+    case = _runner(rank, device, mesh, out)
 
     for policy in POLICIES:
         env = make_axis_env(mesh, attn_policy=policy)
@@ -193,10 +239,24 @@ def _rank(rank, device, store, tmp, args) -> dict:
     case(f"d:{zamba.name}:mamba_tp",
          lambda: _mamba_case(zamba, make_axis_env(mesh, mamba_tp=True), sz,
                              device))
-    out["kernels"] = {"launches": dict(dispatch.launches),
-                      "pages": dict(dispatch.pages_moved),
-                      "routes": dict(dispatch.routes)}
-    return out
+    case(f"e:{xlstm.name}:mlstm",
+         lambda: _mlstm_case(xlstm, make_axis_env(mesh), sz, device))
+    return _finish(out)
+
+
+def _rank8(rank, device, store, tmp, args) -> dict:
+    _start(device)
+    mesh = make_test_mesh(1, WIDE, device_type=device.type)
+    out = {"cases": [], "per_case": {}}
+    _, _, _, xlstm, musicgen = configs(args.smoke)
+    sz = sizes(args.smoke)
+    case = _runner(rank, device, mesh, out)
+    env = make_axis_env(mesh)
+    case(f"e:{xlstm.name}:mlstm:1x{WIDE}",
+         lambda: _mlstm_case(xlstm, env, sz, device))
+    case(f"f:{musicgen.name}:head", lambda: _head_case(musicgen, env, sz,
+                                                       device))
+    return _finish(out)
 
 
 def _since(before) -> dict:
@@ -317,9 +377,14 @@ def _train_case(cfg, env, sz, device, state):
         _sync(device)
         before = comm.snapshot()
         t0 = time.perf_counter()
-        params, opt, m = step(params, opt, tok, lab)
+        # step 0's FLOPs, which the dry run of this step is held to
+        with (FlopCounterMode(display=False) if s == 0
+              else contextlib.nullcontext()) as flops:
+            params, opt, m = step(params, opt, tok, lab)
         loss = float(m["loss"])                         # syncs
         rec["step_s"].append(time.perf_counter() - t0)
+        if s == 0:
+            rec["flops"] = flops.get_total_flops()
         chk = {"loss": loss, "gnorm": float(m["gnorm"]), "lr": float(m["lr"]),
                "step_comm": _since(before)}
         used = _card_used(device)
@@ -356,12 +421,12 @@ def _block_tree(key, p):
     return {"groups": [{"blocks": [{key: p}]}]}
 
 
-def _layer_inputs(cfg, sz, device, seed):
-    """The global input x (DATA * rows, seq, d_model) and a probe of the
+def _layer_inputs(cfg, sz, device, seed, data=DATA):
+    """The global input x (data * rows, seq, d_model) and a probe of the
     same shape, from a seed."""
     rows, S = sz["layer"]
     g = torch.Generator(device).manual_seed(seed)
-    shape = (DATA * rows, S, cfg.d_model)
+    shape = (data * rows, S, cfg.d_model)
     return (torch.randn(shape, generator=g, device=device),
             torch.randn(shape, generator=g, device=device))
 
@@ -456,6 +521,73 @@ def _mamba_case(cfg, env, sz, device):
     if _first(env):
         rec["tokens"] = x.shape[0] * x.shape[1]
     return rec, nbytes
+
+
+def _mlstm_case(cfg, env, sz, device):
+    """(e): one mLSTM layer, its value columns split over ``model``."""
+    spec = cfg.groups[0].unit[0]
+    p = init_mlstm(torch.Generator(device).manual_seed(5), cfg, spec,
+                   device=device)
+    x, probe = _layer_inputs(cfg, sz, device, 6, env.dpsize)
+    blk = lambda t: t["groups"][0]["blocks"][0]["mlstm"]
+
+    def apply(t, xi):
+        y, st = mlstm_forward(blk(t), xi, cfg, spec, return_state=True)
+        return y, {"C": st["C"], "n": st["n"], "conv": st["conv"]}
+
+    rec, nbytes = _layer_case(cfg, env, _block_tree("mlstm", p), x, probe,
+                              apply, apply)
+    if _first(env):
+        rec.update(tokens=x.shape[0] * x.shape[1], heads=spec.num_heads,
+                   value_columns_per_rank=spec.expand * cfg.d_model
+                   // env.msize)
+    return rec, nbytes
+
+
+def _head_case(cfg, env, sz, device):
+    """(f): the untied multi-codebook output head and its loss
+    (``chunked_xent``) on hidden states of ``rows`` x seq: the loss and
+    the gradients of the hidden states and of the head's leaf, against
+    rank 0's whole head (data=1: every rank has the batch)."""
+    rows, S = sz["layer"]
+    g = torch.Generator(device).manual_seed(7)
+    tree = {"embed": {"out": init_embed(g, cfg, device)["out"]}}
+    h = torch.randn((rows, S, cfg.d_model), generator=g, device=device)
+    labels = torch.randint(0, cfg.vocab_size, (rows, S, cfg.num_codebooks),
+                           generator=g, device=device)
+    sharded = shard_tree(tree, cfg, env)
+    names, paths, leaves = flatten_with_names(sharded)
+    cp = [t.detach().requires_grad_() for t in
+          flatten_with_names(compute_params(sharded, env))[2]]
+    hl = h.detach().requires_grad_()
+    t0 = time.perf_counter()
+    with ctx.use_env(env):
+        loss = chunked_xent(unflatten_from_paths(paths, cp)["embed"], cfg, hl,
+                            labels, chunk=sz["xent_chunk"])
+        grads = list(torch.autograd.grad(loss, [hl] + cp))
+    gh = grads.pop(0)
+    gp = unflatten_from_paths(paths, shard_grads(names, leaves, grads, cfg,
+                                                 env))
+    _sync(device)
+    rec = {"sharded_s": time.perf_counter() - t0}
+    errors, want_p = {}, None
+    if _first(env):
+        whole = [t.detach().clone().requires_grad_() for t in
+                 flatten_with_names(tree)[2]]
+        hw = h.detach().clone().requires_grad_()
+        wl = chunked_xent(unflatten_from_paths(paths, whole)["embed"], cfg,
+                          hw, labels, chunk=sz["xent_chunk"])
+        wg = torch.autograd.grad(wl, [hw] + whole)
+        errors["loss"] = [abs(float(loss.detach()) - float(wl.detach())),
+                          abs(float(wl.detach())), None]
+        errors["h_grad"] = [_max_err(gh, wg[0]), float(wg[0].abs().max()),
+                            None]
+        want_p = unflatten_from_paths(paths, list(wg[1:]))
+        rec.update(codebooks=cfg.num_codebooks, vocab=cfg.vocab_size,
+                   tokens=rows * S, loss=float(loss.detach()))
+    _compare_leaves(gp, want_p, env, errors, "param_grads")
+    rec["errors"] = errors
+    return rec, local_nbytes(sharded)
 
 
 if __name__ == "__main__":

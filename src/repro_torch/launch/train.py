@@ -35,8 +35,9 @@ def main(argv=None):
 
 
 def run(argv=None) -> SimpleNamespace:
-    """Train; returns the config, the loss of every step and each step's
-    wall seconds (each step ends in a device sync: its loss is read)."""
+    """Train; returns the config and the ``TrainConfig``, the loss of every
+    step and each step's wall seconds (each step ends in a device sync:
+    its loss is read)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="train-100m")
     ap.add_argument("--smoke", action="store_true",
@@ -118,7 +119,7 @@ def run(argv=None) -> SimpleNamespace:
     finally:
         pf.close()
     print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
-    return SimpleNamespace(cfg=cfg, losses=losses, step_s=step_s)
+    return SimpleNamespace(cfg=cfg, tcfg=tcfg, losses=losses, step_s=step_s)
 
 
 def tput_fmt(x: float) -> str:

@@ -26,7 +26,9 @@ tensors replicated over ``model``; a split region starts with
   lookup summed over ``model``; local logits, gathered over vocab for
   prefill and decode; a loss from the max, the sum of exponentials and
   the gold logit, each reduced over ``model`` (an untied multi-codebook
-  head splits by whole codebooks, each rank's loss a part of the sum).
+  head splits by whole codebooks, each rank's loss a part of the sum,
+  or, with more ranks than codebooks, by columns: each codebook's max,
+  sum of exponentials and gold logit reduced over ``model``).
 """
 from __future__ import annotations
 
@@ -89,6 +91,45 @@ def cinit(values: torch.Tensor, device=None, stack: Optional[int] = None):
 
 
 # ---------------------------------------------------------------------------
+# products
+# ---------------------------------------------------------------------------
+
+
+def pair(spec, x, y):
+    """``torch.einsum`` of two operands, with the reference's rule for which
+    products are matmuls, forward and backward: ``jnp.einsum`` makes every
+    pair a ``dot_general`` and AD transposes it into two more, of which XLA
+    keeps as dots those that contract an index and turns the rest into
+    multiplies.  torch's einsum multiplies where nothing is contracted, as
+    XLA does, but the backward of its ``bmm`` is two ``bmm``s even where one
+    contracts nothing; ``pair``'s backward is two einsums.  The recurrent
+    blocks write each of the reference's einsums in their loops as such
+    pairs, in the order ``jnp.einsum`` contracts them, so that the port's
+    matmuls are the reference's (``distributed/op_analysis``'s dot FLOPs
+    equal its ``hlo_analysis``'s)."""
+    return _Pair.apply(spec, x, y)
+
+
+class _Pair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, spec, x, y):
+        ctx.spec = spec
+        ctx.save_for_backward(x, y)
+        return torch.einsum(spec, x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        ins, out = ctx.spec.split("->")
+        a, b = ins.split(",")
+        gx = (torch.einsum(f"{out},{b}->{a}", g, y)
+              if ctx.needs_input_grad[1] else None)
+        gy = (torch.einsum(f"{out},{a}->{b}", g, x)
+              if ctx.needs_input_grad[2] else None)
+        return None, gx, gy
+
+
+# ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
@@ -99,6 +140,19 @@ def rms_norm(x, scale, eps=1e-5):
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(dt)
+
+
+def split_rms_norm(x, scale, eps, d, tp):
+    """``rms_norm`` over a last dim of ``d`` of which ``x`` holds this
+    rank's part when ``tp`` (the TP) is given: the sum of squares is summed
+    over ``model`` (and, used by every rank's part, so is its gradient)."""
+    if tp is None:
+        return rms_norm(x, scale, eps)
+    dt = x.dtype
+    x = x.float()
+    sq = torch.sum(torch.square(x), -1, keepdim=True)
+    var = comm.copy_to_model(comm.reduce_from_model(sq, tp), tp) / d
+    return (x * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
 
 
 def init_rms_norm(d, device=None, stack=None):
@@ -481,7 +535,9 @@ def _masked_rows(table, local):
 def _vocab_tp(cfg):
     """(TP, split) of the output head over ``model``: split "vocab" (each
     rank a vocab range), "codebooks" (an untied multi-codebook head whose
-    column shards are whole codebooks) or None."""
+    column shards are whole codebooks), "columns" (an untied
+    multi-codebook head whose column shards are not: each rank a range of
+    the codebooks' concatenated vocabularies) or None."""
     cb = cfg.num_codebooks
     if cfg.tie_embeddings or cb == 1:
         t = split_over(cfg.vocab_size)
@@ -489,11 +545,7 @@ def _vocab_tp(cfg):
     t = split_over(cb * cfg.vocab_size)
     if t is None:
         return None, None
-    if cb % t.size:
-        raise NotImplementedError(
-            f"an untied head of {cb} codebooks over {t.size} ranks: its "
-            f"column shards straddle codebooks")
-    return t, "codebooks"
+    return t, "codebooks" if cb % t.size == 0 else "columns"
 
 
 def output_logits(params, cfg, h):
@@ -502,13 +554,19 @@ def output_logits(params, cfg, h):
     logits, t, split = _local_logits(params, cfg, h)
     if t is None:
         return logits
+    if split == "columns":
+        return comm.gather_model(logits, t, -1).reshape(
+            logits.shape[:-1] + (cfg.num_codebooks, cfg.vocab_size))
     return comm.gather_model(logits, t, -1 if split == "vocab" else -2)
 
 
 def _local_logits(params, cfg, h):
-    """(this rank's logits, the TP or None, its split)."""
+    """(this rank's logits, the TP or None, its split); "columns": this
+    rank's columns (B,S,W) of the (B,S,CB*V) logits."""
     t, split = _vocab_tp(cfg)
     h = _enter(h, t)
+    if split == "columns":
+        return h @ params["out"].to(h.dtype), t, split
     return _head(params, cfg, h), t, split
 
 
@@ -526,6 +584,43 @@ def _head(params, cfg, h):
     return logits
 
 
+def _columns_loss(logits, labels, cfg, t):
+    """The summed cross-entropy of an untied multi-codebook head whose
+    column shards are not whole codebooks: this rank's columns ``logits``
+    (..., W) cover parts of some codebooks; each codebook's max, sum of
+    exponentials and gold logit are (..., CB) tensors, filled by each
+    rank in the codebooks it covers (-inf or 0 elsewhere) and reduced over
+    ``model`` in one all-reduce each."""
+    V, cb = cfg.vocab_size, cfg.num_codebooks
+    W = logits.shape[-1]
+    lo = t.rank * W
+    segs = {c: (max(c * V, lo) - lo, min((c + 1) * V, lo + W) - lo)
+            for c in range(lo // V, (lo + W - 1) // V + 1)}
+    lead = logits.shape[:-1]
+    none = torch.full(lead, -torch.inf, dtype=logits.dtype,
+                      device=logits.device)
+    m = comm.all_reduce_max(torch.stack(
+        [logits[..., slice(*segs[c])].amax(-1) if c in segs else none
+         for c in range(cb)], -1), t)
+    zero = torch.zeros(lead, dtype=logits.dtype, device=logits.device)
+    se, gold = [], []
+    for c in range(cb):
+        if c not in segs:
+            se.append(zero)
+            gold.append(zero)
+            continue
+        a, b = segs[c]
+        seg = logits[..., a:b]
+        se.append(torch.exp(seg - m[..., c:c + 1]).sum(-1))
+        local = labels[..., c].long() + (c * V - lo - a)
+        mine = (local >= 0) & (local < b - a)
+        g = torch.gather(seg, -1, torch.where(
+            mine, local, torch.zeros_like(local))[..., None])[..., 0]
+        gold.append(torch.where(mine, g, 0.0))
+    lse = m + torch.log(comm.reduce_from_model(torch.stack(se, -1), t))
+    return torch.sum(lse - comm.reduce_from_model(torch.stack(gold, -1), t))
+
+
 def chunked_xent(params, cfg, h, labels, chunk=256):
     """Mean cross-entropy without materializing (B, S, V) logits: the
     sequence goes in chunks, each checkpointed, so that the backward pass
@@ -537,6 +632,8 @@ def chunked_xent(params, cfg, h, labels, chunk=256):
     def chunk_loss(hc, lc):
         logits, t, split = _local_logits(params, cfg, hc)
         logits = logits.float()
+        if split == "columns":
+            return _columns_loss(logits, lc, cfg, t)
         if split == "codebooks":        # this rank's codebooks, whole
             n = logits.shape[-2]
             lc = lc[..., t.rank * n:(t.rank + 1) * n]

@@ -6,9 +6,9 @@ the reference, the params of each block position in a unit are stacked
 over ``repeat`` (leading axis) and so are the caches; blocks marked
 ``shared=True`` (zamba2's attention) hold ONE param set at group level,
 while their caches are still per application (stacked).  The reference
-scans over the repeat axis; here a Python loop applies the repeats in
-order.  In training each application of a unit is checkpointed by the
-remat policy (``_remat``).
+scans over the repeat axis; here ``scan.scan``, a Python loop, applies
+the repeats in order.  In training each application of a unit is
+checkpointed by the remat policy (``_remat``).
 
 API:
   init_params(cfg, generator, device)
@@ -35,6 +35,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
+from repro_torch.models.scan import scan
 
 
 def _has_mlp(cfg: ArchConfig, spec) -> bool:
@@ -248,22 +249,25 @@ def _run_groups(params, cfg, h, *, mode, positions=None, caches=None,
     ``remat``."""
     if mode == "train":
         for g, gp in zip(cfg.groups, params["groups"]):
-            for r in range(g.repeat):
-                def unit_fn(h, _g=g, _gp=gp, _r=r):
-                    for spec, bp in zip(_g.unit, _unit_params(_g, _gp, _r)):
+            def step(r, h, _g=g, _gp=gp):
+                def unit_fn(h):
+                    for spec, bp in zip(_g.unit, _unit_params(_g, _gp, r)):
                         h, _ = apply_block(bp, h, cfg, spec, mode="train",
                                            positions=positions,
                                            q_chunk=q_chunk,
                                            exact_causal=exact_causal)
                     return h
-                h = _remat(unit_fn, remat)(h)
+                return _remat(unit_fn, remat)(h), None
+            h, _ = scan(step, h, g.repeat)
         return h, None
 
     new_groups = []
     for gi, (g, gp) in enumerate(zip(cfg.groups, params["groups"])):
         gc = caches["groups"][gi] if caches is not None else None
-        per_block = [[] for _ in g.unit]
-        for r in range(g.repeat):
+        keys = []
+
+        def step(r, h, g=g, gp=gp, gc=gc, keys=keys):
+            out = []
             for bi, (spec, bp) in enumerate(zip(g.unit,
                                                 _unit_params(g, gp, r))):
                 c = (_index_tree(gc["blocks"][bi], r) if gc is not None
@@ -271,10 +275,15 @@ def _run_groups(params, cfg, h, *, mode, positions=None, caches=None,
                 h, co = apply_block(bp, h, cfg, spec, mode=mode,
                                     positions=positions, cache=c, pos=pos,
                                     cache_len=cache_len, q_chunk=q_chunk)
-                per_block[bi].append(co)
-        new_groups.append({"blocks": [
-            {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
-            for cs in per_block]})
+                if len(keys) < len(g.unit):     # the first trip's
+                    keys.append(list(co))
+                out += [co[k][None] for k in co]
+            return h, out
+
+        h, stacked = scan(step, h, g.repeat, dim=0)
+        it = iter(stacked)
+        new_groups.append({"blocks": [{k: next(it) for k in ks}
+                                      for ks in keys]})
     return h, {"groups": new_groups}
 
 

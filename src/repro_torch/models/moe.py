@@ -82,10 +82,18 @@ def count_dropped(params, x, cfg) -> int:
     E, K = cfg.moe_experts, cfg.moe_topk
     xf = x.reshape(-1, x.shape[-1])
     probs = torch.softmax((xf @ params["router"].to(x.dtype)).float(), -1)
-    counts = torch.bincount(torch.topk(probs, K, dim=-1).indices.reshape(-1),
-                            minlength=E)
+    counts = expert_counts(torch.topk(probs, K, dim=-1).indices.reshape(-1),
+                           E)
     cap = max(int(cfg.moe_capacity_factor * xf.shape[0] * K / E), 1)
     return int(torch.clamp(counts - cap, min=0).sum())
+
+
+def expert_counts(ids, E: int) -> torch.Tensor:
+    """How many of ``ids`` name each of the ``E`` experts: ``bincount``'s
+    counts, by a scatter-add of fixed shape, which meta tensors (the dry
+    run) take as well."""
+    return torch.zeros(E, dtype=torch.long, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
 
 
 def _moe(params, x, cfg, tp, groups, return_aux):
@@ -114,7 +122,7 @@ def _moe(params, x, cfg, tp, groups, return_aux):
     # stable sort by expert id; rank within expert = index - segment start
     order = torch.sort(flat_e, stable=True).indices
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = expert_counts(flat_e, E)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * K, device=dev) - starts[se]
     T_all = T
@@ -162,7 +170,7 @@ def _moe(params, x, cfg, tp, groups, return_aux):
     if return_aux:
         # Switch-style load-balance loss
         me = probs.mean(0)                                            # (E,)
-        ce = torch.bincount(flat_e, minlength=E) / (T * K)
+        ce = expert_counts(flat_e, E) / (T * K)
         aux = E * torch.sum(me * ce)
         return out, aux
     return out

@@ -4,8 +4,8 @@ O(1)-state decode recurrence.
 Follows the SSD formulation (Dao & Gu, 2024): scalar per-head decay A,
 per-step dt (softplus), shared B/C projections (ngroups=1), causal depthwise
 conv on (x, B, C), gated output with RMSNorm.  The reference scans over
-chunks with ``lax.scan``; here a Python loop carries the state from chunk
-to chunk.
+chunks with ``lax.scan``; here ``scan.scan``, a Python loop, carries the state
+from chunk to chunk.
 
 Mamba tensor parallelism (an env with ``mamba_tp`` whose ``model`` axis
 divides the heads; ``sharding.mamba_split``): every SSD einsum carries
@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from repro_torch.distributed import comm, ctx
 from repro_torch.distributed.sharding import mamba_split
 from repro_torch.models.layers import (_enter, _leave, cinit, init_rms_norm,
-                                      ninit, rms_norm, zinit)
+                                      ninit, pair, split_rms_norm, zinit)
+from repro_torch.models.scan import scan
 
 
 def _dims(cfg, spec):
@@ -95,17 +96,9 @@ def _tp_split(params, cfg, spec):
 
 
 def _gated_norm(y, z, scale, eps, d_inner, tp):
-    """rms_norm(y * silu(z)) over d_inner; split over ``model``, the sum
-    of squares is summed over it (and, used by every rank's part, so is
-    its gradient)."""
-    g = y * F.silu(z)
-    if tp is None:
-        return rms_norm(g, scale, eps)
-    dt = g.dtype
-    g = g.float()
-    sq = torch.sum(torch.square(g), -1, keepdim=True)
-    var = comm.copy_to_model(comm.reduce_from_model(sq, tp), tp) / d_inner
-    return (g * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
+    """rms_norm(y * silu(z)) over d_inner (split over ``model``, its sum
+    of squares summed over it)."""
+    return split_rms_norm(y * F.silu(z), scale, eps, d_inner, tp)
 
 
 def _whole_cache(state, conv_state, d_inner, tp):
@@ -181,9 +174,9 @@ def mamba_forward(params, x, cfg, spec, chunk=256, return_state=False):
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=x.device))[None, :, :, None]
     state = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
-    ys = []
-    for c0 in range(0, S, chunk):
-        sl = slice(c0, c0 + chunk)
+
+    def step(i, state):
+        sl = slice(i * chunk, (i + 1) * chunk)
         x_i, b_i, c_i = xs[:, sl].float(), Bm[:, sl].float(), Cm[:, sl].float()
         da_i, dt_i = dA[:, sl], dt[:, sl]
         cum = torch.cumsum(da_i, dim=1)                       # (B,c,H)
@@ -196,13 +189,17 @@ def mamba_forward(params, x, cfg, spec, chunk=256, return_state=False):
         att = cb[..., None] * decay * dt_i[:, None, :, :]     # (B,c,c,H)
         y = torch.einsum("bsjh,bjhp->bshp", att, x_i)
         # contribution of carried state: y += C_s . state * exp(cum_s)
-        y = y + torch.einsum("bsn,bhpn,bsh->bshp", c_i, state, torch.exp(cum))
+        # the reference's "bsn,bhpn,bsh->bshp", in jnp.einsum's pairs
+        y = y + pair("bsnh,bhpn->bshp",
+                     pair("bsn,bsh->bsnh", c_i, torch.exp(cum)), state)
         # new chunk state: exp(cum_end)*state + sum_j exp(cum_end-cum_j) dt_j B_j x_j^T
         dec_end = torch.exp(cum[:, -1, None, :] - cum)        # (B,c,H)
-        sB = torch.einsum("bjh,bjn,bjhp->bhpn", dec_end * dt_i, b_i, x_i)
+        sB = pair("bjhp,bjhn->bhpn", x_i,          # "bjh,bjn,bjhp->bhpn"
+                  pair("bjh,bjn->bjhn", dec_end * dt_i, b_i))
         state = torch.exp(cum[:, -1])[:, :, None, None] * state + sB
-        ys.append(y)
-    y = torch.cat(ys, dim=1)
+        return state, y
+
+    state, y = scan(step, state, S // chunk, source=x)
     y = y + xs.float() * params["D"].float()[None, None, :, None]
     y = y.reshape(B, S, d_inner).to(dt_)
     y = _gated_norm(y, z, params["norm"]["scale"], cfg.norm_eps, d_full, tp)

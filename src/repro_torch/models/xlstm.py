@@ -6,18 +6,41 @@ group-norm -> gated down-proj). As in the reference, one documented
 simplification: bounded sigmoid input/forget gates rather than the
 exponential-gate + max-stabilizer form — identical state-update structure,
 FLOPs and memory, but unconditionally stable in bf16.  The reference's
-``lax.scan`` over chunks (mLSTM) and over steps (sLSTM) is a Python loop
-here.
+``lax.scan`` over chunks (mLSTM) and over steps (sLSTM) is ``scan.scan``
+here, a Python loop.
+
+mLSTM tensor parallelism (an env whose ``model`` axis divides d_inner;
+``sharding.mlstm_split``): each rank owns the value columns
+``[r * d_inner / msize, (r + 1) * d_inner / msize)`` (whole heads when
+``model`` divides the heads, else a part of one head), as ``param_pspec``
+lays out ``wv``'s columns, ``w_down``'s rows and ``w_up``'s columns.  The
+rank computes ``up = x @ w_up`` on its columns and gathers it over
+``model``, since xm feeds the q, k and v projections whole; q and k
+likewise, so that the scores, decays and ``n`` of its heads are whole,
+and its state ``C`` is (B, heads, dh, its value columns).  Its output's
+norm over d_inner sums its squares over ``model`` and ``w_down``'s
+product is a partial sum.  ``up``, q, k, the gates and the conv are used
+whole by every rank for its own columns, so their gradients are parts:
+the gathers' backward sums over ``model`` before it slices
+(``comm.gather_shared``) and the step sums the replicated leaves' parts
+(``sharding.model_partial``).  Caches at rest are whole (``cache_pspec``):
+prefill gathers the final state, and decode updates its own columns of
+the whole cache and gathers them back.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (cinit, init_rms_norm, ninit, rms_norm,
+from repro_torch.distributed import comm, ctx
+from repro_torch.distributed.sharding import mlstm_split
+from repro_torch.models.layers import (_enter, _leave, cinit, init_rms_norm,
+                                      ninit, pair, rms_norm, split_rms_norm,
                                       zinit)
+from repro_torch.models.scan import scan
 from repro_torch.models.ssm import check_chunks
 
 
@@ -56,41 +79,100 @@ def _key_scale(dh, dt):
     return torch.tensor(math.sqrt(dh), dtype=torch.float32).to(dt)
 
 
-def _mlstm_qkv(params, x, cfg, spec):
+class _Own(NamedTuple):
+    """A rank's share of an mLSTM block's value columns
+    ``[c0, c0 + dl)`` of d_inner: ``Hl`` heads from ``h0``, ``wl`` value
+    columns of each from ``w0`` (whole heads, or a part of one)."""
+    c0: int
+    dl: int
+    h0: int
+    Hl: int
+    w0: int
+    wl: int
+
+
+def _split(cfg, spec):
+    """(TP, _Own) of the installed env's split of the block over
+    ``model`` (``sharding.mlstm_split``), or (None, the whole block)."""
+    d_inner, H, dh = _mdims(cfg, spec)
+    t = ctx.tp()
+    if t is None or not mlstm_split(cfg, spec, t.env):
+        return None, _Own(0, d_inner, 0, H, 0, dh)
+    dl = d_inner // t.size
+    c0 = t.rank * dl
+    if dl >= dh:
+        return t, _Own(c0, dl, c0 // dh, dl // dh, 0, dh)
+    return t, _Own(c0, dl, c0 // dh, 1, c0 % dh, dl)
+
+
+def _mlstm_qkv(params, x, cfg, spec, tp, own):
+    """The block's inputs to its cell: q and k of the rank's heads, its
+    value columns v, z and whole xm, the log forget and input gates of its
+    heads.  Split over ``model``, ``up`` and q, k are gathered whole (used
+    by each rank for its own share, their gradients are parts)."""
     dt = x.dtype
     d_inner, H, dh = _mdims(cfg, spec)
-    up = x @ params["w_up"].to(dt)
+    B, S = x.shape[:2]
+    heads = slice(own.h0, own.h0 + own.Hl)
+    whole = ((lambda t: t) if tp is None else
+             (lambda t: comm.gather_shared(t, tp, -1)))
+    up = whole(_enter(x, tp) @ params["w_up"].to(dt))
     xm, z = up[..., :d_inner], up[..., d_inner:]
     # causal depthwise conv(4)
     w = params["conv_w"].to(dt)
     pad = F.pad(xm, (0, 0, w.shape[0] - 1, 0))
     xc = sum(pad[:, i:i + xm.shape[1]] * w[i] for i in range(w.shape[0]))
     xc = F.silu(xc + params["conv_b"].to(dt))
-    B, S = x.shape[:2]
-    q = (xc @ params["wq"].to(dt)).reshape(B, S, H, dh)
-    k = (xc @ params["wk"].to(dt)).reshape(B, S, H, dh) \
-        / _key_scale(dh, dt)
-    v = (xm @ params["wv"].to(dt)).reshape(B, S, H, dh)
+    q = whole(xc @ params["wq"].to(dt)).reshape(B, S, H, dh)[:, :, heads]
+    k = (whole(xc @ params["wk"].to(dt)).reshape(B, S, H, dh)
+         / _key_scale(dh, dt))[:, :, heads]
+    v = (xm @ params["wv"].to(dt)).reshape(B, S, own.Hl, own.wl)
     gates = xc @ params["w_gates"].to(dt) + params["b_gates"].to(dt)
-    lf = F.logsigmoid(gates[..., H:].float())                        # (B,S,H)
-    ig = torch.sigmoid(gates[..., :H].float())
-    return q, k, v, z, xm, lf, ig
+    lf = F.logsigmoid(gates[..., H:].float())[..., heads]            # (B,S,Hl)
+    ig = torch.sigmoid(gates[..., :H].float())[..., heads]
+    return q, k, v, z[..., own.c0:own.c0 + own.dl], xm, lf, ig
+
+
+def _mlstm_out(params, h, z, cfg, spec, tp, own):
+    """The down projection of the normed, gated cell output ``h`` (this
+    rank's value columns): the norm over d_inner sums its squares over
+    ``model``, and the product is a partial sum there."""
+    dt = h.dtype
+    scale = params["norm"]["scale"][own.c0:own.c0 + own.dl]
+    h = split_rms_norm(h, scale, cfg.norm_eps, _mdims(cfg, spec)[0], tp)
+    return _leave((h * F.silu(z)) @ params["w_down"].to(dt), tp)
+
+
+def _whole_state(C, n, tp, H):
+    """The cell's state over all heads and value columns, gathered over
+    ``model`` (caches at rest are whole, ``cache_pspec``)."""
+    if tp is None:
+        return C, n
+    B, _, dh, _ = C.shape
+    cols = C.permute(0, 2, 1, 3).reshape(B, dh, -1)     # value cols last
+    C = comm.gather_model(cols, tp, -1).reshape(B, dh, H, dh) \
+        .permute(0, 2, 1, 3).contiguous()
+    # ranks that share a head hold the same n
+    return C, comm.gather_model(n, tp, 1)[:, ::max(tp.size // H, 1)]
 
 
 def mlstm_forward(params, x, cfg, spec, chunk=256, return_state=False):
     B, S, D = x.shape
     d_inner, H, dh = _mdims(cfg, spec)
     dt = x.dtype
-    q, k, v, z, xm, lf, ig = _mlstm_qkv(params, x, cfg, spec)
+    tp, own = _split(cfg, spec)
+    q, k, v, z, xm, lf, ig = _mlstm_qkv(params, x, cfg, spec, tp, own)
 
     chunk = check_chunks(S, chunk)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=x.device))[None, :, :, None]
-    C = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=x.device)
-    n = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
-    hs = []
-    for c0 in range(0, S, chunk):
-        sl = slice(c0, c0 + chunk)
+    C = torch.zeros((B, own.Hl, dh, own.wl), dtype=torch.float32,
+                    device=x.device)
+    n = torch.zeros((B, own.Hl, dh), dtype=torch.float32, device=x.device)
+
+    def step(i, carry):
+        C, n = carry
+        sl = slice(i * chunk, (i + 1) * chunk)
         qf, kf, vf = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
         lf_i, ig_i = lf[:, sl], ig[:, sl]
         cum = torch.cumsum(lf_i, dim=1)                 # (B,c,H)
@@ -98,27 +180,33 @@ def mlstm_forward(params, x, cfg, spec, chunk=256, return_state=False):
         # clamp masked entries before exp
         decay = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)),
                             0.0)
-        att = torch.einsum("bshd,bjhd->bsjh", qf, kf) * decay \
+        att = pair("bshd,bjhd->bsjh", qf, kf) * decay \
             * ig_i[:, None, :, :]
-        num = torch.einsum("bsjh,bjhd->bshd", att, vf)
+        num = pair("bsjh,bjhd->bshd", att, vf)
         den = att.sum(dim=2)                            # (B,c,H)
         # carried state contribution
         dec_s = torch.exp(cum)                          # (B,c,H)
-        num = num + torch.einsum("bshd,bhdw,bsh->bshw", qf, C, dec_s)
-        den = den + torch.einsum("bshd,bhd,bsh->bsh", qf, n, dec_s)
-        hs.append(num / torch.clamp(torch.abs(den), min=1.0)[..., None])
+        # the reference's "bshd,bhdw,bsh->bshw" and "bshd,bhd,bsh->bsh",
+        # in jnp.einsum's pairs
+        num = num + pair("bsh,bhws->bshw", dec_s,
+                         pair("bhdw,bshd->bhws", C, qf))
+        den = den + pair("bsh,bhs->bsh", dec_s, pair("bshd,bhd->bhs", qf, n))
+        h = num / torch.clamp(torch.abs(den), min=1.0)[..., None]
         # state update
         dec_end = torch.exp(cum[:, -1, None, :] - cum) * ig_i   # (B,c,H)
-        C = torch.exp(cum[:, -1])[:, :, None, None] * C + torch.einsum(
-            "bjh,bjhd,bjhw->bhdw", dec_end, kf, vf)
-        n = torch.exp(cum[:, -1])[:, :, None] * n + torch.einsum(
+        C = torch.exp(cum[:, -1])[:, :, None, None] * C + pair(
+            "bjhd,bjhw->bhdw", pair("bjh,bjhd->bjhd", dec_end, kf), vf)
+        n = torch.exp(cum[:, -1])[:, :, None] * n + pair(
             "bjh,bjhd->bhd", dec_end, kf)
-    h = torch.cat(hs, dim=1).reshape(B, S, d_inner).to(dt)
-    h = rms_norm(h, params["norm"]["scale"], cfg.norm_eps)
-    out = (h * F.silu(z)) @ params["w_down"].to(dt)
+        return (C, n), h
+
+    (C, n), h = scan(step, (C, n), S // chunk, source=x)
+    out = _mlstm_out(params, h.reshape(B, S, own.dl).to(dt), z, cfg, spec,
+                     tp, own)
     if return_state:
         d_conv = params["conv_w"].shape[0]
         conv_state = F.pad(xm, (0, 0, d_conv - 1, 0))[:, -(d_conv - 1):]
+        C, n = _whole_state(C, n, tp, H)
         return out, {"C": C, "n": n, "conv": conv_state}
     return out
 
@@ -134,31 +222,38 @@ def init_mlstm_cache(cfg, spec, batch, dtype, device=None):
 
 
 def mlstm_decode(params, x, cfg, spec, cache):
-    """x: (B,1,D) single-step."""
+    """x: (B,1,D) single-step.  Split over ``model``, the rank updates its
+    value columns of the whole cache and the new cache is gathered."""
     B = x.shape[0]
     d_inner, H, dh = _mdims(cfg, spec)
     dt = x.dtype
-    up = x @ params["w_up"].to(dt)                       # (B,1,2*d_inner)
+    tp, own = _split(cfg, spec)
+    heads = slice(own.h0, own.h0 + own.Hl)
+    whole = ((lambda t: t) if tp is None else
+             (lambda t: comm.gather_model(t, tp, -1)))
+    up = whole(_enter(x, tp) @ params["w_up"].to(dt))    # (B,1,2*d_inner)
     xm, z = up[..., :d_inner], up[..., d_inner:]
     hist = torch.cat([cache["conv"], xm], dim=1)         # (B,4,d_inner)
     w = params["conv_w"].to(dt)
     xc = F.silu(torch.einsum("bkc,kc->bc", hist, w) + params["conv_b"].to(dt))
-    q = (xc @ params["wq"].to(dt)).reshape(B, H, dh).float()
-    k = ((xc @ params["wk"].to(dt)).reshape(B, H, dh)
-         / _key_scale(dh, dt)).float()
-    v = (xm[:, 0] @ params["wv"].to(dt)).reshape(B, H, dh).float()
+    q = whole(xc @ params["wq"].to(dt)).reshape(B, H, dh)[:, heads].float()
+    k = (whole(xc @ params["wk"].to(dt)).reshape(B, H, dh)
+         / _key_scale(dh, dt))[:, heads].float()
+    v = (xm[:, 0] @ params["wv"].to(dt)).reshape(B, own.Hl, own.wl).float()
     gates = xc @ params["w_gates"].to(dt) + params["b_gates"].to(dt)
-    f = torch.sigmoid(gates[..., H:].float())
-    i = torch.sigmoid(gates[..., :H].float())
-    C = cache["C"] * f[:, :, None, None] + i[:, :, None, None] * torch.einsum(
+    f = torch.sigmoid(gates[..., H:].float())[:, heads]
+    i = torch.sigmoid(gates[..., :H].float())[:, heads]
+    C = cache["C"][:, heads, :, own.w0:own.w0 + own.wl]
+    C = C * f[:, :, None, None] + i[:, :, None, None] * torch.einsum(
         "bhd,bhw->bhdw", k, v)
-    n = cache["n"] * f[:, :, None] + i[:, :, None] * k
+    n = cache["n"][:, heads] * f[:, :, None] + i[:, :, None] * k
     num = torch.einsum("bhd,bhdw->bhw", q, C)
     den = torch.einsum("bhd,bhd->bh", q, n)
     h = (num / torch.clamp(torch.abs(den), min=1.0)[..., None]) \
-        .reshape(B, 1, d_inner).to(dt)
-    h = rms_norm(h, params["norm"]["scale"], cfg.norm_eps)
-    out = (h * F.silu(z)) @ params["w_down"].to(dt)
+        .reshape(B, 1, own.dl).to(dt)
+    out = _mlstm_out(params, h, z[..., own.c0:own.c0 + own.dl], cfg, spec,
+                     tp, own)
+    C, n = _whole_state(C, n, tp, H)
     return out, {"C": C, "n": n, "conv": hist[:, 1:]}
 
 
@@ -219,11 +314,13 @@ def slstm_forward(params, x, cfg, spec, return_state=False):
     xg = x @ params["w"].to(dt)                          # (B,S,4d)
     state = {k: torch.zeros((B, D), dtype=dt, device=x.device)
              for k in ("c", "n", "h")}
-    hs = []
-    for t in range(S):
+
+    def step(t, state):
         state = _slstm_cell(params, xg[:, t], state, spec.num_heads)
-        hs.append(state["h"])
-    out = _slstm_out(params, torch.stack(hs, dim=1), cfg)
+        return state, state["h"][:, None]
+
+    state, hs = scan(step, state, S, source=x)
+    out = _slstm_out(params, hs, cfg)
     if return_state:
         return out, state
     return out

@@ -5,8 +5,8 @@ the reference keeps for its bf16 cross-replica all-reduces), AdamW + clip
 
 Gradients come from ``torch.autograd.grad`` over the params' leaves, in
 the reference's leaf order.  Microbatches are accumulated in a Python
-loop, each microbatch's gradient cast to ``grad_dtype`` and then added,
-as the reference's ``lax.scan`` does.  The step updates params and
+loop (``scan.scan``), each microbatch's gradient cast to ``grad_dtype``
+and then added, as the reference's ``lax.scan`` does.  The step updates params and
 optimizer state in place and returns them.
 """
 from __future__ import annotations
@@ -20,6 +20,7 @@ from repro_torch import _dtypes
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.descriptor import flatten_with_names, unflatten_from_paths
 from repro_torch.models import lm
+from repro_torch.models.scan import scan
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
 from repro_torch.training.schedule import warmup_cosine
 
@@ -64,16 +65,20 @@ def make_loss_and_grads(cfg: ArchConfig, tcfg: TrainConfig):
             loss, grads = value_and_grad(paths, leaves, tokens, labels)
             return loss, [g.to(gdt) for g in grads]
         split = lambda t: t.reshape((mb, B // mb) + tuple(t.shape[1:]))
-        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        toks, labs = split(tokens), split(labels)
         grads = [torch.zeros(p.shape, dtype=gdt, device=p.device)
                  for p in leaves]
-        for tok, lab in zip(split(tokens), split(labels)):
-            l, g = value_and_grad(paths, leaves, tok, lab)
+
+        def step(i, loss):
+            l, g = value_and_grad(paths, leaves, toks[i], labs[i])
             with torch.no_grad():
                 for acc, gi in zip(grads, g):
                     acc.add_(gi.to(gdt))
             del g
-            loss = loss + l
+            return loss + l, None
+
+        loss, _ = scan(step, torch.zeros((), dtype=torch.float32,
+                                         device=tokens.device), mb)
         return loss / mb, [g.div_(mb) for g in grads]
 
     return loss_and_grads

@@ -21,10 +21,16 @@ reference's results are computed once, jitted, in this process:
   against ``_moe_mlp_gspmd`` on the whole batch, at factor 0.5 (drops);
 - a checkpoint of model-sharded state read back on the mesh and on one
   rank, bit for bit;
+- xlstm's step with its mLSTM split over ``model``, and the same 4 ranks
+  as data=1 x model=4: xlstm with part of an mLSTM head on each rank and
+  musicgen with each of its 2 codebooks over 2 ranks, against the
+  reference's step, prefill and decode;
 - the sharded step of the layouts those leave out (q/k norms and biases
   under the head_dim split and ``qtp``, musicgen's head split by
-  codebooks, xlstm's mLSTM computed whole) against the port's own step
-  on one device.
+  codebooks) and xlstm's against the port's own step on one device;
+- the dry run (``launch/dryrun.py``) of the steps: rank 1's collectives
+  and FLOPs, counted on meta tensors in a fake group, against what rank
+  1 measured running them.
 
 Single-process: ``lm.prefill`` with ``q_chunk`` shorter than the prompt
 against the reference, and ``chip_smoke.py``'s phase 10 rehearsed at
@@ -59,8 +65,19 @@ STEPS = {
     "moonshot-gspmd": (MOE[0], {"moe_impl": "gspmd"}, MOE[1], 1),
     "moonshot-shardmap": (MOE[0], {"moe_impl": "shardmap"}, MOE[1], 1),
     "zamba2-mamba_tp": ("zamba2-2.7b", {"mamba_tp": True}, {}, MB),
+    "xlstm-mlstm": ("xlstm-1.3b", {}, {}, MB),
 }
-SERVES = ("gemma3-v1", "gemma3-qtp", "zamba2-mamba_tp")
+# on data=1 x model=4 (the same 4 ranks): smoke xlstm's 2 mLSTM heads over
+# 4 ranks (half a head each) and musicgen's 2 codebooks (each over 2)
+STEPS14 = {
+    "xlstm-part-head": ("xlstm-1.3b", {}, {}, MB),
+    "musicgen-columns": ("musicgen-large", {}, {"num_codebooks": 2}, MB),
+}
+SERVES = ("gemma3-v1", "gemma3-qtp", "zamba2-mamba_tp", "xlstm-mlstm",
+          "xlstm-part-head", "musicgen-columns")
+# the steps whose rank-1 collectives and FLOPs the dry run is held to
+DRY = ("gemma3-v1", "gemma3-qtp", "moonshot-gspmd", "zamba2-mamba_tp",
+       "xlstm-mlstm", "xlstm-part-head", "musicgen-columns")
 # the layouts the steps above leave out, against the port's own step on
 # one device (itself held to the reference by test_torch_train_*.py)
 PORT_STEPS = {
@@ -69,6 +86,7 @@ PORT_STEPS = {
     "qwen2-bias-qtp": ("qwen2-7b", {"attn_policy": "qtp"},
                        {"num_kv_heads": 1}),
     "musicgen-codebooks": ("musicgen-large", {}, {}),
+    # the test's name; the mLSTM is split over ``model`` now
     "xlstm-mlstm-whole": ("xlstm-1.3b", {}, {}),
 }
 PROMPT, CACHE, DECODE = 16, 24, 3
@@ -83,8 +101,8 @@ def _cfgs(arch, **kw):
 
 def _tokens(cfg, seed, shape):
     """Token ids of ``shape`` (and each codebook's, for multi-codebook
-    archs, when ``shape`` is (B, S))."""
-    if len(shape) == 2 and cfg.num_codebooks > 1:
+    archs, when ``shape`` is (B, S) or (B,))."""
+    if len(shape) <= 2 and cfg.num_codebooks > 1:
         shape = shape + (cfg.num_codebooks,)
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, shape).astype(np.int32)
@@ -200,11 +218,12 @@ def cases(tmp_path_factory):
         return key, dict(cfg=tc, params=tp, tok=torch.from_numpy(tok),
                          lab=torch.from_numpy(lab), mb=mb)
 
-    for name, (arch, env, kw, mb) in STEPS.items():
+    for name, (arch, env, kw, mb) in {**STEPS, **STEPS14}.items():
         # shardmap: each data shard's rows are a microbatch of their own
         ref_mb = mb * 2 if env.get("moe_impl") == "shardmap" else mb
         pending[name], inputs["steps"][name] = case(arch, kw, ref_mb)
-        inputs["steps"][name].update(env=env, mb=mb)
+        inputs["steps"][name].update(env=env, mb=mb, mesh=(
+            (1, 4) if name in STEPS14 else (2, 2)))
     for mb in (1, 2):
         pending[f"repair-mb{mb}"], inputs["repair"] = case(*MOE, mb)
     for name, (arch, env, kw) in PORT_STEPS.items():
@@ -213,22 +232,24 @@ def cases(tmp_path_factory):
         lab = torch.from_numpy(_tokens(jc, 2, (B, S)))
         refs[name] = _port_step(tc, tp, tok, lab)
         inputs["steps"][name] = dict(cfg=tc, params=tp, tok=tok, lab=lab,
-                                     env=env, mb=MB)
+                                     env=env, mb=MB, mesh=(2, 2))
     jc, tc, jp, tp = model(*MOE)
     refs["repair-drops"] = [_port_drops(tc, tp, inputs["repair"]["tok"],
                                         inputs["repair"]["lab"], mb)
                             for mb in (1, 2)]
     for name in SERVES:
-        arch, env, kw, _ = STEPS[name]
+        arch, env, kw, _ = {**STEPS, **STEPS14}[name]
         jc, tc, jp, tp = model(arch, kw)
         ptok = _tokens(jc, 3, (2, PROMPT))
         steps = [_tokens(jc, 4 + i, (2,)) for i in range(DECODE)]
-        pending["serve-" + name] = ("serve", arch)
-        jobs[("serve", arch)] = (lambda jc=jc, jp=jp, ptok=ptok, steps=steps:
-                                 _reference_serve(jc, jp, ptok, steps))
+        key = ("serve", arch, tuple(sorted(kw.items())))
+        pending["serve-" + name] = key
+        jobs[key] = (lambda jc=jc, jp=jp, ptok=ptok, steps=steps:
+                     _reference_serve(jc, jp, ptok, steps))
         inputs["serve"][name] = dict(
             cfg=tc, env=env, params=tp, tok=torch.from_numpy(ptok),
-            steps=[torch.from_numpy(t) for t in steps])
+            steps=[torch.from_numpy(t) for t in steps],
+            mesh=(1, 4) if name in STEPS14 else (2, 2))
     jc, tc = _cfgs("moonshot-v1-16b-a3b", moe_capacity_factor=MOE_FACTOR)
     tm = init_moe(torch.Generator().manual_seed(3), tc)
     tx = torch.from_numpy(np.random.default_rng(5).standard_normal(
@@ -249,8 +270,9 @@ def cases(tmp_path_factory):
         refs["moe-shardmap"] = np.concatenate([moe(x[:half]),
                                                moe(x[half:])])
         refs["moe-gspmd"] = moe(x)
-        got = ranks.result()[0]
+        got, dry = ranks.result()[:2]
     refs.update({name: done[key] for name, key in pending.items()})
+    got["dry"] = dry
     return refs, got, inputs
 
 
@@ -262,29 +284,51 @@ def cases(tmp_path_factory):
 def _tp_rank(rank, device, store, tmp, path):
     data = torch.load(path, weights_only=False)
     mesh21 = make_test_mesh(2, 1, device_type="cpu", ranks=[0, 1])
-    mesh22 = make_test_mesh(2, 2, device_type="cpu")
-    out = {}
+    meshes = {(2, 2): make_test_mesh(2, 2, device_type="cpu"),
+              (1, 4): make_test_mesh(1, 4, device_type="cpu")}
+    mesh22 = meshes[(2, 2)]
+    out, dry = {}, {}
     if rank < 2:
         c = data["repair"]
         for mb in (1, 2):
             out[f"repair-mb{mb}"] = _step(c, make_axis_env(mesh21), mb)
     for name, c in data["steps"].items():
-        out[name] = _step(c, make_axis_env(mesh22, **c["env"]), c["mb"])
+        out[name] = _step(c, make_axis_env(meshes[c["mesh"]], **c["env"]),
+                          c["mb"])
+        dry[name] = out[name].pop("measured")
     for name, c in data["serve"].items():
-        out["serve-" + name] = _serve(c, make_axis_env(mesh22, **c["env"]))
+        out["serve-" + name] = _serve(c, make_axis_env(meshes[c["mesh"]],
+                                                       **c["env"]))
     out.update(_moe(data["moe"], mesh22))
     out["checkpoint"] = _checkpoint(data["steps"]["gemma3-v1"], mesh22, tmp)
-    return out if rank == 0 else None
+    return {0: out, 1: dry}.get(rank)
 
 
 def _step(c, env, mb):
+    """One sharded step; ``measured``: its collectives by kind (calls and
+    bytes) and its FLOPs (``FlopCounterMode``), for the dry run."""
+    from torch.utils.flop_counter import FlopCounterMode
     cfg = c["cfg"]
     p = shard_tree(c["params"], cfg, env)
-    step = make_sharded_train_step(
-        cfg, TrainConfig(microbatches=mb, remat="full", **STEP), env)
-    p, o, m = step(p, init_opt_state(p), c["tok"], c["lab"])
+    step = make_sharded_train_step(cfg, _tcfg(mb), env)
+    o = init_opt_state(p)
+    before = comm.snapshot()
+    with FlopCounterMode(display=False) as flops:
+        p, o, m = step(p, o, c["tok"], c["lab"])
+    coll = {}
+    for kind, now in comm.snapshot().items():
+        was = before.get(kind, {"calls": 0, "bytes": 0})
+        if now["calls"] > was["calls"]:
+            coll[kind] = {"calls": now["calls"] - was["calls"],
+                          "bytes": now["bytes"] - was["bytes"]}
     return {"metrics": {k: float(v) for k, v in m.items()},
-            "count": int(o["count"]), "params": gather_tree(p)}
+            "count": int(o["count"]), "params": gather_tree(p),
+            "measured": {"collectives": coll,
+                         "flops": flops.get_total_flops()}}
+
+
+def _tcfg(mb):
+    return TrainConfig(microbatches=mb, remat="full", **STEP)
 
 
 def _serve(c, env):
@@ -396,10 +440,32 @@ def test_sharded_step_takes_moe_capacity_over_the_microbatch(cases, mb):
     _check_step(got[f"repair-mb{mb}"], refs[f"repair-mb{mb}"], mb)
 
 
-@pytest.mark.parametrize("name", list(STEPS))
+@pytest.mark.parametrize("name", list(STEPS) + list(STEPS14))
 def test_tensor_parallel_step_matches_reference(cases, name):
     refs, got, _ = cases
     _check_step(got[name], refs[name], name)
+
+
+@pytest.mark.parametrize("name", DRY)
+def test_dry_run_counts_what_a_rank_runs(cases, name):
+    """The dry run (meta tensors, one rank of a fake group of 4) of a
+    step: rank 1's collectives by kind, calls and bytes, and its FLOPs,
+    equal to what rank 1 of the gloo spawn measured running it."""
+    from repro_torch.distributed import op_analysis
+    from repro_torch.launch import dryrun
+    _, got, inputs = cases
+    c = inputs["steps"][name]
+    data, model = c["mesh"]
+    with dryrun.fake_group(4):
+        env = make_axis_env(dryrun.mesh_of({"data": data, "model": model}),
+                            **c["env"])
+        spec = dryrun.step_spec(c["cfg"], "train", env, B, S,
+                                _tcfg(c["mb"]))
+        an = op_analysis.analyze(spec["fn"], *spec["args"])
+    assert not torch.distributed.is_initialized()
+    want = got["dry"][name]
+    assert an["port_collectives"] == want["collectives"], name
+    assert an["dot_flops"] == want["flops"], name
 
 
 @pytest.mark.parametrize("name", list(PORT_STEPS))
@@ -453,11 +519,26 @@ def test_prefill_with_query_chunks_matches_reference(cases):
 
 
 def test_chip_smoke_tensor_parallel_phase_rehearses_on_the_cpu():
+    """Phase 10 at smoke size, then phase 11 on its run (the sweep at
+    smoke size: two cells)."""
     from torch_parity import load_chip_smoke
+    from repro_torch.configs.base import get_arch, reduce_for_smoke
     cs = load_chip_smoke()
-    got = cs.tensor_parallel_phase(torch, torch.device("cpu"), smoke=True)
-    kinds = [c["case"].split(":")[0] for c in got]
-    assert kinds == ["b", "a", "b", "a", "c", "c", "c", "c", "d"]
-    drops = {(c["impl"], c["factor"]): c["dropped"] for c in got
+    cpu = torch.device("cpu")
+    got = cs.tensor_parallel_phase(torch, cpu, smoke=True)
+    kinds = [c["case"].split(":")[0] for c in got.cases]
+    assert kinds == ["b", "a", "b", "a", "c", "c", "c", "c", "d", "e", "e",
+                     "f"]
+    drops = {(c["impl"], c["factor"]): c["dropped"] for c in got.cases
              if c["case"].startswith("c:")}
     assert drops[("gspmd", 1.0)] > 0 and drops[("shardmap", 1.0)] > 0
+    train = {"config": (reduce_for_smoke(get_arch("gemma3-1b")),
+                        TrainConfig(microbatches=2, q_chunk=32,
+                                    xent_chunk=32)),
+             "batch": 4, "seq": 64, "mean_step_s_2_4": None,
+             "peak_device_bytes": None}
+    dry = cs.dryrun_phase(torch, cpu, got, train, smoke=True)
+    assert [c["status"] for c in dry["a"]] == ["ok", "ok"]
+    assert all(b["collectives_equal"] and b["flops_equal"]
+               for b in dry["b"])
+    assert dry["c"]["dot_flops"] > 0
