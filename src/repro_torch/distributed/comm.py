@@ -30,7 +30,14 @@ through this module only:
   ``sum_over_model``, a partial gradient's sum in the step
   (``tp_grad_all_reduce``);
 - ``gather_counts``: the MoE's per-expert counts of every data shard of a
-  microbatch (``moe_counts``, an all-gather over the batch axes).
+  microbatch (``moe_counts``, an all-gather over the batch axes);
+- ``gather_layer``: one layer's slice of a param inside the layer loop,
+  gathered over the fsdp axes (``fsdp_layer_gather``), its gradient
+  summed over ``model`` where it is a part there and reduce-scattered
+  (``tp_grad_all_reduce``, ``reduce_scatter`` / ``all_reduce``);
+- ``sp_attn_combine``: decode attention over a sequence-parallel cache,
+  each data shard's max, sum of exponentials and unnormalised output
+  all-gathered over the batch axes and merged (``sp_attn_combine``).
 
 The same collectives run on every backend and device: gloo takes
 ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` on CUDA tensors
@@ -101,28 +108,44 @@ def gather(x, axes=None, first_only=False) -> torch.Tensor:
     alone, which gets the full tensor, and every other rank gets None (a
     check's read: a quarter of the bytes of an all-gather on 4 ranks).
     Every rank of the mesh calls it; a plain tensor comes back as it is."""
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    mesh, out = x.device_mesh, x.to_local()
+    mesh = x.device_mesh
+    if not first_only:
+        return _gather_dims(x.to_local(), mesh, x.placements, axes,
+                            "all_gather")
+    out = x.to_local()
+    for i, p, k in _sharded_dims(mesh, x.placements, axes):
+        out = _gather_first(out.contiguous(), mesh.get_group(i), k, p.dim)
+        if out is None:     # so is every rank of its later groups
+            return None
+    return out if is_first(mesh) else None
+
+
+def _sharded_dims(mesh, placements, axes):
+    """(mesh dim, placement, size) of every mesh dim of size > 1 that
+    ``placements`` shard, minor first; with ``axes`` of those only."""
+    from torch.distributed.tensor import Shard
     for i in reversed(range(mesh.ndim)):
-        p = x.placements[i]
-        k = mesh.size(i)
-        if (not isinstance(p, Shard) or k == 1 or axes is not None
-                and mesh.mesh_dim_names[i] not in axes):
-            continue
+        p, k = placements[i], mesh.size(i)
+        if (isinstance(p, Shard) and k > 1 and (
+                axes is None or mesh.mesh_dim_names[i] in axes)):
+            yield i, p, k
+
+
+def _gather_dims(out, mesh, placements, axes, kind):
+    """The local part ``out`` all-gathered along the dims its
+    ``placements`` shard over the mesh dims named ``axes`` (all: None),
+    minor mesh dim first."""
+    for i, p, k in _sharded_dims(mesh, placements, axes):
         part = out.contiguous()
-        if first_only:
-            out = _gather_first(part, mesh.get_group(i), k, p.dim)
-            if out is None:     # so is every rank of its later groups
-                return None
-            continue
         buf = torch.empty((k * part.shape[0],) + tuple(part.shape[1:]),
                           dtype=part.dtype, device=part.device)
-        _timed("all_gather", out.device, lambda: dist.all_gather_into_tensor(
+        _timed(kind, out.device, lambda: dist.all_gather_into_tensor(
             buf, part, group=mesh.get_group(i)), _nbytes(buf))
         out = torch.cat(buf.chunk(k), dim=p.dim)
-    return out if not first_only or is_first(mesh) else None
+    return out
 
 
 def _gather_first(part, group, k, dim):
@@ -352,6 +375,69 @@ def gather_counts(counts, groups) -> torch.Tensor:
             buf, part, group=group), _nbytes(buf))
         out = buf
     return out
+
+
+class _GatherLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, part, mesh, placements, fsdp, batch_dims, tp):
+        ctx.args = mesh, placements, batch_dims, tp
+        return _gather_dims(part, mesh, placements, fsdp,
+                            "fsdp_layer_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, placements, batch_dims, tp = ctx.args
+        if tp is not None:
+            g = sum_over_model(g, tp)
+        elif any(not placements[i].is_shard() and mesh.size(i) > 1
+                 for i in batch_dims):
+            g = g.clone()       # reduce_mean all-reduces that dim in place
+        return (reduce_mean(g, placements, mesh, batch_dims),
+                None, None, None, None, None)
+
+
+def gather_layer(x, r, fsdp, batch_dims, tp=None) -> torch.Tensor:
+    """One layer's slice of the DTensor leaf ``x`` as the layer computes
+    with it: slice ``r`` of its local part along the stacked repeat axis
+    (None: a shared block's leaf, whole), all-gathered over the mesh axes
+    ``fsdp`` (``fsdp_layer_gather``); its ``model`` shard stays local.
+    The slice's gradient comes back as this rank's shard of it: summed
+    over ``model`` when ``tp`` is given (the leaf is a part there,
+    ``sharding.model_partial``), then the mean over the mesh dims
+    ``batch_dims`` reduce-scattered (``reduce_mean``), as the step's
+    ``shard_grads`` lays out a whole leaf's."""
+    from torch.distributed.tensor import Shard
+    part, pl = x.to_local(), x.placements
+    if r is not None:    # the repeat axis is never sharded
+        part = part[r]
+        pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                   for p in pl)
+    return _GatherLayer.apply(part, x.device_mesh, pl, fsdp,
+                              tuple(batch_dims), tp)
+
+
+def sp_attn_combine(m, s, o, groups) -> torch.Tensor:
+    """Attention over a sequence split over the data axes, merged: each
+    shard's running max ``m`` (...), sum of exponentials ``s`` (...) and
+    unnormalised output ``o`` (..., hd) are all-gathered over ``groups``
+    (``ctx.SeqSplit.groups``, major first; ``sp_attn_combine``) and
+    merged by log-sum-exp, the shards summed in their order: the
+    softmax-weighted output (..., hd), in float32.  A shard with no
+    valid position (``m`` at the mask value) weighs nothing."""
+    out = torch.cat([m.float()[..., None], s.float()[..., None],
+                     o.float()], -1)[None]
+    for group, k in reversed(groups):
+        part = out.contiguous()
+        buf = torch.empty((k * part.shape[0],) + tuple(part.shape[1:]),
+                          dtype=part.dtype, device=part.device)
+        _timed("sp_attn_combine", part.device,
+               lambda: dist.all_gather_into_tensor(buf, part, group=group),
+               _nbytes(buf))
+        out = buf
+    top = out[..., 0].amax(0)
+    w = torch.exp(out[..., 0] - top)
+    total = (out[..., 1] * w).sum(0)
+    return (out[..., 2:] * w[..., None]).sum(0) / total[..., None]
 
 
 def is_first(mesh) -> bool:

@@ -12,7 +12,11 @@ layers split their own work: ``tp()`` says, in one place, whether the
 installed env splits over ``model`` and which rank this is there, and
 ``batch_groups()`` whether the rows a layer sees are this rank's data
 shard of a larger batch (the sharded step and serve functions install
-the env with ``split_batch=True``).
+the env with ``split_batch=True``), and ``seq_split(window)`` whether an
+attention layer's cache is this rank's slice of its sequence axis (the
+serve functions install the env with ``split_seq=cache_len`` when the
+batch does not divide the data axes: ``cache_pspec``'s sequence-parallel
+caches).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch.distributed.sharding import P, placements
 
 _ENV = None
 _SPLIT_BATCH = False
+_SPLIT_SEQ = 0
 
 
 def set_env(env) -> None:
@@ -37,14 +42,17 @@ def get_env():
 
 
 @contextlib.contextmanager
-def use_env(env, split_batch: bool = False):
-    global _ENV, _SPLIT_BATCH
-    prev = _ENV, _SPLIT_BATCH
-    _ENV, _SPLIT_BATCH = env, split_batch
+def use_env(env, split_batch: bool = False, split_seq: int = 0):
+    """Installs ``env``; ``split_batch``: the rows are this rank's data
+    shard; ``split_seq``: the whole cache length (``cache_len``) when the
+    attention caches are split along their sequence axis, else 0."""
+    global _ENV, _SPLIT_BATCH, _SPLIT_SEQ
+    prev = _ENV, _SPLIT_BATCH, _SPLIT_SEQ
+    _ENV, _SPLIT_BATCH, _SPLIT_SEQ = env, split_batch, split_seq
     try:
         yield
     finally:
-        _ENV, _SPLIT_BATCH = prev
+        _ENV, _SPLIT_BATCH, _SPLIT_SEQ = prev
 
 
 class TP(NamedTuple):
@@ -74,15 +82,19 @@ def tp():
     return tp_of(_ENV)
 
 
+def _data_groups(env):
+    names = list(env.axes)
+    return [(env.mesh.get_group(names.index(a)), env.axes[a])
+            for a in env.dp if env.axes[a] > 1]
+
+
 def batch_groups():
     """[(group, size)] of every batch axis of size > 1, major first, when
     the rows the layers see are this rank's shard of the batch; else []."""
     env = _ENV
     if env is None or not _SPLIT_BATCH:
         return []
-    names = list(env.axes)
-    return [(env.mesh.get_group(names.index(a)), env.axes[a])
-            for a in env.dp if env.axes[a] > 1]
+    return _data_groups(env)
 
 
 def batch_index() -> int:
@@ -93,6 +105,39 @@ def batch_index() -> int:
     for a in env.dp:
         i = i * env.axes[a] + coord[a]
     return i
+
+
+class SeqSplit(NamedTuple):
+    """A rank's slice of an attention cache's sequence axis."""
+    groups: list     # [(group, size)] of the data axes of size > 1
+    index: int       # this rank's shard, major-to-minor over ``groups``
+    first: int       # the slice's first position (a ring's first slot)
+    length: int      # its positions (slots)
+
+    @property
+    def whole(self) -> int:
+        """The cache's whole length (positions or ring slots)."""
+        n = self.length
+        for _, k in self.groups:
+            n *= k
+        return n
+
+
+def seq_split(window=None):
+    """The ``SeqSplit`` of the cache of an attention layer with ``window``
+    (None: global) under the installed env, when it is this rank's slice:
+    the caches are split along their sequence axis (``split_seq``) and
+    the cache's whole length, ``cache_len`` or a ring's ``min(window,
+    cache_len)`` slots, divides over the data axes, as ``cache_pspec``
+    asks.  Else None: every data rank holds the cache whole."""
+    env = _ENV
+    if env is None or not _SPLIT_SEQ or env.dpsize == 1:
+        return None
+    n = _SPLIT_SEQ if window is None else min(window, _SPLIT_SEQ)
+    if n % env.dpsize:
+        return None
+    length, i = n // env.dpsize, batch_index()
+    return SeqSplit(_data_groups(env), i, i * length, length)
 
 
 def _axis_size(env, name) -> int:

@@ -61,7 +61,8 @@ from repro_torch.models import scan
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
 KINDS = {"all_gather": "all-gather", "tp_all_gather": "all-gather",
-         "moe_counts": "all-gather", "reduce_scatter": "reduce-scatter",
+         "moe_counts": "all-gather", "fsdp_layer_gather": "all-gather",
+         "sp_attn_combine": "all-gather", "reduce_scatter": "reduce-scatter",
          "tp_reduce_scatter": "reduce-scatter", "all_reduce": "all-reduce",
          "tp_all_reduce": "all-reduce", "tp_grad_all_reduce": "all-reduce",
          "tp_all_reduce_max": "all-reduce"}

@@ -10,8 +10,12 @@ shardings; here the step makes them explicitly, all through ``comm``:
 
 1. take this rank's rows of the global batch: in each microbatch, its
    data shard of the reference's microbatch (``batch_rows``);
-2. all-gather every param over the fsdp axes, leaving its ``model``
-   shard local;
+2. all-gather the embedding and the final norm over the fsdp axes,
+   leaving their ``model`` shards local (``compute_params``); the group
+   leaves stay DTensors, and the layer loop gathers each layer's slice
+   as it comes to it (``lm._unit_params``, ``comm.gather_layer``), as
+   GSPMD gathers each layer's inside the reference's scan: once per
+   microbatch, and again in each checkpointed unit's recompute;
 3. run the single-device loss and gradient
    (``training.train_step.make_loss_and_grads``) on the local rows, with
    the env installed (``ctx.use_env``): the layers split their work over
@@ -20,7 +24,9 @@ shardings; here the step makes them explicitly, all through ``comm``:
 4. sum over ``model`` the gradients that are parts there
    (``sharding.model_partial``);
 5. reduce-scatter each gradient to its param's placements, as a mean over
-   the batch axes (an all-reduce for a leaf replicated over them);
+   the batch axes (an all-reduce for a leaf replicated over them): 4 and
+   5 for a group leaf's slice in the backward of its layer's gather, for
+   the embedding and the final norm after the loss (``shard_grads``);
 6. the global norm over the shards, one all-reduce
    (``training.optimizer.global_norm``);
 7. AdamW on the local shards, in place.
@@ -30,7 +36,10 @@ Params, ``m`` and ``v`` are DTensors built with ``DTensor.from_local``
 (no collective); ``count`` stays a plain int32 tensor, the same on every
 rank.  ``make_sharded_serve_prefill`` / ``make_sharded_serve_decode``
 are the reference's serve functions under the env: params laid out by
-``param_pspec``, caches by ``cache_pspec``, the batch over the data axes.
+``param_pspec`` and gathered layer by layer, caches by ``cache_pspec``,
+the batch over the data axes; a batch that does not divide them (batch-1
+long-context decode) is replicated on every data rank, and the attention
+caches are split along their sequence axis instead (``ctx.seq_split``).
 """
 from __future__ import annotations
 
@@ -147,31 +156,45 @@ def batch_rows(t, microbatches: int, env: AxisEnv):
         (-1,) + tuple(t.shape[1:])), True
 
 
-def compute_params(params, env: AxisEnv):
+def _in_groups(name: str) -> bool:
+    return name.startswith("groups/")
+
+
+def compute_params(params, env: AxisEnv, groups: bool = True):
     """The leaves as the layers compute with them under ``env``: every
     DTensor gathered over the fsdp axes, its ``model`` shard kept; plain
-    leaves as they are.  Every rank of the mesh calls it."""
+    leaves as they are.  With ``groups`` False the leaves under
+    ``groups`` stay DTensors, for the layer loop to gather one layer at a
+    time (the sharded step and serve functions); only the embedding and
+    the final norm are gathered here.  Every rank of the mesh calls it."""
     _, paths, leaves = flatten_with_names(params)
-    return unflatten_from_paths(paths, [comm.gather(x, axes=env.fsdp)
-                                        for x in leaves])
+    return unflatten_from_paths(paths, [
+        x if not groups and _in_groups("/".join(map(str, path)))
+        else comm.gather(x, axes=env.fsdp)
+        for path, x in zip(paths, leaves)])
 
 
-def shard_grads(names, leaves, grads, cfg: ArchConfig, env: AxisEnv):
+def shard_grads(names, leaves, grads, cfg: ArchConfig, env: AxisEnv,
+                groups: bool = True):
     """Each param's gradient (as the layers computed it from
     ``compute_params``, on this rank's rows) laid out as the param
     DTensor is: summed over ``model`` where it is a part there, then the
     mean over the batch axes reduce-scattered to the param's placements.
+    With ``groups`` False the group leaves' gradients came so from the
+    layer loop's gathers (``comm.gather_layer``) and are only laid out.
     ``grads`` is emptied as it goes."""
     tp = ctx.tp_of(env)
     batch_dims = [i for i, a in enumerate(env.axes) if a in env.dp]
     out = []
     for i, (name, x) in enumerate(zip(names, leaves)):
         g, grads[i] = grads[i], None
-        if tp is not None and model_partial(name, tuple(x.shape), cfg, env):
-            g = comm.sum_over_model(g, tp)
-        out.append(DTensor.from_local(
-            comm.reduce_mean(g, x.placements, env.mesh, batch_dims),
-            env.mesh, x.placements, run_check=False))
+        if groups or not _in_groups(name):
+            if tp is not None and model_partial(name, tuple(x.shape), cfg,
+                                                env):
+                g = comm.sum_over_model(g, tp)
+            g = comm.reduce_mean(g, x.placements, env.mesh, batch_dims)
+        out.append(DTensor.from_local(g, env.mesh, x.placements,
+                                      run_check=False))
     return out
 
 
@@ -191,11 +214,12 @@ def make_sharded_train_step(cfg: ArchConfig, tcfg: TrainConfig,
         (tok, split), (lab, _) = (batch_rows(tokens, mb, env),
                                   batch_rows(labels, mb, env))
         names, paths, leaves = flatten_with_names(params)
-        full = flatten_with_names(compute_params(params, env))[2]
+        full = flatten_with_names(compute_params(params, env,
+                                                 groups=False))[2]
         with ctx.use_env(env, split_batch=split):
             loss, grads = loss_and_grads(paths, full, tok, lab)
         del full
-        shards = shard_grads(names, leaves, grads, cfg, env)
+        shards = shard_grads(names, leaves, grads, cfg, env, groups=False)
         if split:    # the ranks' losses are over different rows
             loss = comm.all_reduce_sum(loss.clone(), mesh,
                                        batch_dims) / env.dpsize
@@ -209,13 +233,16 @@ def make_sharded_train_step(cfg: ArchConfig, tcfg: TrainConfig,
     return train_step
 
 
-def _serve_rows(t, env: AxisEnv):
+def _serve_env(t, env: AxisEnv, cache_len: int):
+    """(this rank's rows of the batch ``t``, the ``ctx.use_env`` that
+    serves them): a batch that divides the data axes is split over them;
+    one that does not is replicated on every data rank, and the
+    attention caches of length ``cache_len`` are split along their
+    sequence axis instead (``cache_pspec``); recurrent states are then
+    replicated."""
     rows, split = batch_rows(t, 1, env)
-    if not split and env.dpsize > 1:
-        raise NotImplementedError(
-            f"batch {t.shape[0]} over {env.dpsize} data shards: the "
-            f"sequence-parallel caches of cache_pspec are not ported")
-    return rows, split
+    return rows, ctx.use_env(env, split_batch=split,
+                             split_seq=0 if split else cache_len)
 
 
 def _laid_out(local, spec, env: AxisEnv, shape):
@@ -227,26 +254,42 @@ def _laid_out(local, spec, env: AxisEnv, shape):
                               placements(spec, env), run_check=False)
 
 
-def _whole_cache_shape(name, local, cfg, batch):
+def _whole_cache_shape(name, local, cfg, batch, cache_len):
     """The whole shape of a cache leaf of which this rank holds ``local``
-    (``cache_pspec`` splits the batch, and an attention cache's heads or
-    head_dim: its whole K and hd are the config's)."""
+    (``cache_pspec`` splits the batch, or an attention cache's sequence,
+    and its heads or head_dim: its whole length is ``cache_len``, or a
+    ring's ``min(window, cache_len)`` slots, and its K and hd are the
+    config's)."""
     shape = list(local)
     shape[1] = batch
-    if name.split("/")[-1] in ("k", "v"):
+    parts = name.split("/")         # groups/<g>/blocks/<b>/<k or v>
+    if parts[-1] in ("k", "v"):
+        window = cfg.groups[int(parts[1])].unit[int(parts[3])].window
+        shape[2] = cache_len if window is None else min(window, cache_len)
         shape[-2:] = [cfg.num_kv_heads, cfg.head_dim]
     return tuple(shape)
 
 
 def _serve_out(cfg, env, logits, caches, batch, shapes):
-    """Logits (B, V) over the data axes and caches by ``cache_pspec``;
-    ``shapes`` the caches' whole shapes."""
-    lspec = P(batch_pspec(batch, env)[0], *[None] * (logits.dim() - 1))
+    """Logits (B, V) over the data axes (replicated for a batch that does
+    not divide them) and caches by ``cache_pspec``; ``shapes`` the
+    caches' whole shapes."""
+    lspec = P(*(batch_pspec(batch, env) or (None,)),
+              *[None] * (logits.dim() - 1))
     names, paths, leaves = flatten_with_names(caches)
     return (_laid_out(logits, lspec, env, (batch,) + tuple(logits.shape[1:])),
             unflatten_from_paths(paths, [
                 _laid_out(c, cache_pspec(n, s, cfg, env, batch), env, s)
                 for n, s, c in zip(names, shapes, leaves)]))
+
+
+def lay_out_cache(name, whole, cfg: ArchConfig, env: AxisEnv, batch: int):
+    """The whole cache leaf ``name`` that every rank of the mesh holds,
+    laid out by ``cache_pspec`` for a global batch of ``batch``: a
+    DTensor of this rank's part (a copy).  No collective."""
+    spec = cache_pspec(name, tuple(whole.shape), cfg, env, batch)
+    return _laid_out(local_part(whole, spec, env).clone(), spec, env,
+                     tuple(whole.shape))
 
 
 def make_sharded_serve_prefill(cfg: ArchConfig, cache_len: int,
@@ -257,13 +300,14 @@ def make_sharded_serve_prefill(cfg: ArchConfig, cache_len: int,
     over the data axes, the caches DTensors laid out by ``cache_pspec``.
     Every rank of the mesh calls it."""
     def serve_prefill(params, tokens):
-        tok, split = _serve_rows(tokens, env)
-        with ctx.use_env(env, split_batch=split):
-            logits, caches = lm.prefill(compute_params(params, env), cfg, tok,
-                                        cache_len, q_chunk=q_chunk)
+        tok, env_ = _serve_env(tokens, env, cache_len)
+        with env_:
+            logits, caches = lm.prefill(
+                compute_params(params, env, groups=False), cfg, tok,
+                cache_len, q_chunk=q_chunk)
         names, _, leaves = flatten_with_names(caches)
         return _serve_out(cfg, env, logits, caches, tokens.shape[0], [
-            _whole_cache_shape(n, c.shape, cfg, tokens.shape[0])
+            _whole_cache_shape(n, c.shape, cfg, tokens.shape[0], cache_len)
             for n, c in zip(names, leaves)])
     return serve_prefill
 
@@ -273,12 +317,19 @@ def make_sharded_serve_decode(cfg: ArchConfig, env: AxisEnv):
     the global batch (``token``, ``pos`` (B,)) from ``caches`` as
     ``make_sharded_serve_prefill`` lays them out."""
     def serve_decode(params, caches, token, pos):
-        (tok, split), (p, _) = _serve_rows(token, env), _serve_rows(pos, env)
-        _, paths, leaves = flatten_with_names(caches)
+        names, paths, leaves = flatten_with_names(caches)
+        # the cache length: the longest attention cache's (a global
+        # layer's; with only window layers, their rings' lengths follow
+        # from the longest ring's as from the cache length)
+        cache_len = max([c.shape[2] for n, c in zip(names, leaves)
+                         if n.split("/")[-1] in ("k", "v")], default=0)
+        (tok, env_), (p, _) = (_serve_env(token, env, cache_len),
+                               batch_rows(pos, 1, env))
         local = unflatten_from_paths(paths, [c.to_local() for c in leaves])
-        with ctx.use_env(env, split_batch=split):
-            logits, new = lm.decode_step(compute_params(params, env), cfg,
-                                         local, tok, p)
+        with env_:
+            logits, new = lm.decode_step(
+                compute_params(params, env, groups=False), cfg, local, tok,
+                p)
         return _serve_out(cfg, env, logits, new, token.shape[0],
                           [tuple(c.shape) for c in leaves])
     return serve_decode

@@ -28,10 +28,14 @@ Differences from the reference's tool, each deliberate:
   its trip count;
 - ``fits_hbm`` compares the rank's peak live bytes (``op_analysis``) with
   ``HBM_PER_CHIP``, where the reference adds XLA's argument and temp
-  sizes.  The port's step gathers every leaf over the fsdp axes before
-  the loss (``train_step.compute_params``), where GSPMD gathers each
-  layer's inside the scan, so the peak is the port's step's, not the
-  reference's;
+  sizes.  The port's step gathers each layer's params over the fsdp axes
+  inside the layer loop (``comm.gather_layer``), as GSPMD does inside
+  the scan; the loop's three trips count its gathers for every layer;
+- ``long_500k`` (batch 1, 524,288 positions) serves the batch whole on
+  every data rank and splits the attention caches along their sequence
+  axis (``cache_pspec``), merging the ranks' attention by
+  ``comm.sp_attn_combine``; the reference's rule skips the cell for the
+  archs that are not sub-quadratic;
 - the roofline's constants are the H100's (``distributed/roofline.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b \\

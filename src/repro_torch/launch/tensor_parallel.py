@@ -27,7 +27,18 @@ rank's run of the same function on the same inputs:
     ``mamba_tp``: output, final state and gradients;
 (e) one xlstm mLSTM layer at full width (``--smoke``: smoke), its value
     columns split over ``model`` (whole heads): output, final state and
-    gradients.
+    gradients;
+(g) gemma3-1b (``--smoke``: its smoke cut) served at batch 1, which does
+    not divide the data axes: the attention caches are split along their
+    sequence axis (``cache_pspec``, ``ctx.seq_split``), and the head_dim
+    over ``model``.  Decode: a cache of long_500k's 524,288 positions
+    seeded from a generator up to position 262,142, then greedy steps
+    whose writes land on both data shards; prefill: a prompt of 6,000
+    into a cache of 8,192, then greedy steps.  Against rank 0's
+    ``lm.decode_step`` / ``lm.prefill`` on the whole cache: logits,
+    tokens, and every rank's cache part against the same slice of the
+    one-rank cache (bit for bit where no step wrote; the entries the
+    steps wrote, computed under tensor parallelism, to rounding).
 
 A second spawn of 8 ranks, laid out as data=1 x model=8 (``_rank8``):
 
@@ -67,9 +78,9 @@ from repro_torch.distributed import comm, ctx
 from repro_torch.distributed.sharding import (P, make_axis_env, mesh_axes,
                                               placements)
 from repro_torch.distributed.train_step import (
-    batch_rows, compute_params, local_nbytes, make_sharded_serve_decode,
-    make_sharded_serve_prefill, make_sharded_train_step, shard_grads,
-    shard_tree)
+    batch_rows, compute_params, lay_out_cache, local_nbytes,
+    make_sharded_serve_decode, make_sharded_serve_prefill,
+    make_sharded_train_step, shard_grads, shard_tree)
 from repro_torch.kernels import dispatch
 from repro_torch.launch.elastic import spawn, state_errors
 from repro_torch.launch.mesh import make_test_mesh
@@ -102,12 +113,18 @@ def parse_args(argv=None):
 def sizes(smoke: bool) -> dict:
     """Batch shapes of each case: (a) rows x seq of the global batch; (b)
     rows, prompt, cache length, decode steps, query chunk; (c), (d) rows
-    per data shard x seq."""
+    per data shard x seq; (g) the decode's cache length and the position
+    it is seeded up to, the prefill's prompt, cache length and query
+    chunk, and the greedy steps after each."""
     if smoke:
         return dict(train=(4, 32), q_chunk=16, xent_chunk=16,
-                    serve=(2, 16, 24, 3, 8), layer=(2, 16))
+                    serve=(2, 16, 24, 3, 8), layer=(2, 16),
+                    long=dict(cache=64, filled=30, prompt=24,
+                              prefill_cache=32, q_chunk=8, steps=4))
     return dict(train=(4, 1024), q_chunk=1024, xent_chunk=256,
-                serve=(2, 64, 96, 8, 32), layer=(2, 512))
+                serve=(2, 64, 96, 8, 32), layer=(2, 512),
+                long=dict(cache=524288, filled=262142, prompt=6000,
+                          prefill_cache=8192, q_chunk=1000, steps=4))
 
 
 ARCHS = ("gemma3-1b", "moonshot-v1-16b-a3b", "zamba2-2.7b", "xlstm-1.3b",
@@ -241,6 +258,11 @@ def _rank(rank, device, store, tmp, args) -> dict:
                              device))
     case(f"e:{xlstm.name}:mlstm",
          lambda: _mlstm_case(xlstm, make_axis_env(mesh), sz, device))
+    env, state, L = make_axis_env(mesh), {}, sz["long"]
+    case(f"g:{gemma.name}:decode_{L['cache']}",
+         lambda: _long_case(gemma, env, sz, device, state, prefill=False))
+    case(f"g:{gemma.name}:prefill_{L['prompt']}",
+         lambda: _long_case(gemma, env, sz, device, state, prefill=True))
     return _finish(out)
 
 
@@ -326,7 +348,7 @@ def _serve_case(cfg, env, sz, device, state):
     pre = make_sharded_serve_prefill(cfg, cache_len, env, q_chunk=q_chunk)
     dec = make_sharded_serve_decode(cfg, env)
     with torch.no_grad():
-        cp = compute_params(params, env)
+        cp = compute_params(params, env, groups=False)
         logits, caches = pre(cp, tok)
         got = [comm.gather(logits)]
         pos = torch.full((B,), prompt, dtype=torch.int32, device=device)
@@ -355,6 +377,140 @@ def _serve_case(cfg, env, sz, device, state):
                 torch.equal(a.argmax(-1), b.argmax(-1))
                 for a, b in zip(got, wants))
             del rc
+    return rec, {"params": local_nbytes(params), "caches": cache_bytes}
+
+
+def _fresh_params(cfg, env, device, state):
+    """Fresh params laid out by ``param_pspec`` and, on rank 0, whole:
+    made once and kept in ``state``."""
+    if "params" not in state:
+        full = lm.init_params(cfg, torch.Generator(device).manual_seed(0),
+                              device)
+        state["params"] = shard_tree(full, cfg, env)
+        state["whole"] = full if _first(env) else None
+        del full
+    return state["params"], state["whole"]
+
+
+def _seeded_caches(cfg, cache_len, filled, env, device, keep):
+    """Caches of batch 1 and ``cache_len`` whose positions (ring slots)
+    below ``filled`` come from a seeded generator, zeros past it: this
+    rank's parts laid out by ``cache_pspec``, and the whole caches when
+    ``keep`` (rank 0).  Each leaf is made whole on every rank in turn."""
+    shapes = lm.init_cache(cfg, 1, cache_len, torch.float32, "meta")
+    names, paths, leaves = flatten_with_names(shapes)
+    parts, wholes = [], []
+    for i, (name, t) in enumerate(zip(names, leaves)):
+        g = torch.Generator(device).manual_seed(100 + i)
+        whole = torch.zeros(t.shape, device=device)
+        n = min(filled, t.shape[2])
+        whole[:, :, :n] = torch.randn(
+            (t.shape[0], t.shape[1], n) + tuple(t.shape[3:]), generator=g,
+            device=device)
+        parts.append(lay_out_cache(name, whole, cfg, env, 1))
+        wholes.append(whole if keep else None)
+        del whole
+    return (unflatten_from_paths(paths, parts),
+            unflatten_from_paths(paths, wholes) if keep else None)
+
+
+def _cache_errors(cfg, caches, want, written) -> dict:
+    """Every rank's cache part (each leaf gathered in turn into rank 0;
+    every rank calls) against the same slice of ``want``, the one-rank
+    caches (rank 0; None elsewhere): whether every position (ring slot)
+    that no step wrote is bit-equal, and the largest difference over the
+    ``written`` positions (a ring's: their slots) with the largest
+    magnitude there."""
+    names, _, leaves = flatten_with_names(caches)
+    wl = flatten_with_names(want)[2] if want is not None else None
+    equal, err, scale = True, 0.0, 0.0
+    for i, (name, x) in enumerate(zip(names, leaves)):
+        full = comm.gather(x, first_only=True)
+        if wl is None:
+            continue
+        w = wl[i]
+        parts = name.split("/")
+        window = cfg.groups[int(parts[1])].unit[int(parts[3])].window
+        n = w.shape[2]
+        mine = sorted({p % n if window is not None else p for p in written})
+        at = torch.tensor(mine, device=w.device)
+        differs = (full != w).flatten(3).any(-1).any(1).any(0)
+        differs[at] = False
+        equal = equal and not bool(differs.any())
+        a, b = full.index_select(2, at), w.index_select(2, at)
+        err = max(err, _max_err(a, b))
+        scale = max(scale, float(b.abs().max()))
+        del full
+    if wl is None:
+        return {}
+    return {"cache_unwritten_bits_equal": equal,
+            "cache_written_max_abs_err": err, "cache_written_scale": scale}
+
+
+def _long_case(cfg, env, sz, device, state, prefill):
+    """(g): batch 1 over sequence-parallel caches, against rank 0's one-rank
+    run on the whole caches: a decode from seeded caches, or a prefill,
+    then greedy steps (see the module's docstring)."""
+    L = sz["long"]
+    params, whole = _fresh_params(cfg, env, device, state)
+    rng = np.random.default_rng(11 if prefill else 13)
+    dec = make_sharded_serve_decode(cfg, env)
+    want = None
+    with torch.no_grad():
+        if prefill:
+            tok = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (1, L["prompt"]))).to(device=device,
+                                                          dtype=torch.int32)
+            pre = make_sharded_serve_prefill(cfg, L["prefill_cache"], env,
+                                             q_chunk=L["q_chunk"])
+            logits, caches = pre(params, tok)
+            got, start = [comm.gather(logits)], L["prompt"]
+            if whole is not None:
+                wlog, want = lm.prefill(whole, cfg, tok, L["prefill_cache"],
+                                        q_chunk=L["q_chunk"])
+                wants = [wlog]
+        else:
+            caches, want = _seeded_caches(cfg, L["cache"], L["filled"], env,
+                                          device, whole is not None)
+            first = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1,))
+                                     ).to(device=device, dtype=torch.int32)
+            got, start = [], L["filled"]
+            wants = [] if whole is not None else None
+        t0 = time.perf_counter()
+        for i in range(L["steps"]):
+            pos = torch.full((1,), start + i, dtype=torch.int32, device=device)
+            t = got[-1].argmax(-1).to(torch.int32) if got else first
+            logits, caches = dec(params, caches, t, pos)
+            got.append(comm.gather(logits))
+        _sync(device)
+        step_s = (time.perf_counter() - t0) / L["steps"]
+        if whole is not None:
+            for i in range(L["steps"]):
+                pos = torch.full((1,), start + i, dtype=torch.int32,
+                                 device=device)
+                t = wants[-1].argmax(-1).to(torch.int32) if wants else first
+                wlog, want = lm.decode_step(whole, cfg, want, t, pos)
+                wants.append(wlog)
+        cache_bytes = local_nbytes(caches)
+        written = range(0 if prefill else start, start + L["steps"])
+        rec = {"batch": 1, "cache_len": (L["prefill_cache"] if prefill
+                                         else L["cache"]),
+               "decode_steps": L["steps"], "decode_s_per_token": step_s,
+               "first_position": start,
+               "cache_part_shapes": {n: list(x.to_local().shape) for n, x in
+                                     zip(*flatten_with_names(caches)[::2])}}
+        if prefill:
+            rec.update(prompt=L["prompt"], q_chunk=L["q_chunk"])
+        else:
+            rec["seeded_to"] = L["filled"]
+        rec.update(_cache_errors(cfg, caches, want, written))
+        if whole is not None:
+            rec["logits_max_abs_err"] = max(_max_err(a, b)
+                                            for a, b in zip(got, wants))
+            rec["tokens_equal"] = all(
+                torch.equal(a.argmax(-1), b.argmax(-1))
+                for a, b in zip(got, wants))
+        del caches, want
     return rec, {"params": local_nbytes(params), "caches": cache_bytes}
 
 

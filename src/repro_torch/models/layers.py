@@ -251,14 +251,20 @@ def _cache_hd(cfg):
 
 
 def _kv_heads(k, cfg, tp):
-    """Under "qtp", the K/V head(s) this rank's Q heads read."""
+    """Under "qtp", the K/V heads this rank's Q heads read: its local Q
+    head ``i`` is head ``tp.rank * Hl + i`` and reads K/V head ``(tp.rank
+    * Hl + i) // G``.  Local heads that fill whole groups, or lie in one,
+    share their K/V heads (``_sdpa`` groups them); heads that straddle
+    groups each get their own."""
     Hl = cfg.num_heads // tp.size
     G = cfg.num_heads // cfg.num_kv_heads
-    if G % Hl:
-        raise NotImplementedError(
-            f"qtp: {Hl} Q heads per rank straddle groups of {G}")
-    j = tp.rank * Hl // G
-    return k[:, :, j:j + 1]
+    first = tp.rank * Hl
+    if G % Hl == 0 or Hl % G == 0:
+        j = first // G
+        return k[:, :, j:j + max(Hl // G, 1)]
+    idx = torch.tensor([(first + i) // G for i in range(Hl)],
+                       device=k.device)
+    return k.index_select(2, idx)
 
 
 def _project_qkv(params, x, spec, cfg, positions, tp=None, plan=None):
@@ -290,16 +296,36 @@ def _sdpa(q, k, v, mask, scale, part=None):
     mask: (B|1,Sq,Sk) bool.  ``part``: the TP when head_dim is split over
     ``model``: the scores are summed over it before the softmax."""
     B, Sq, H, hd = q.shape
-    K = k.shape[2]
-    G = H // K
-    q = q.reshape(B, Sq, K, G, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
-    scores = _leave(scores, part)
-    scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.full_like(scores, NEG_INF))
+    scores = _scores(q, k, mask, scale, part)
     w = _enter(torch.softmax(scores, dim=-1).to(v.dtype), part)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
     return out.reshape(B, Sq, H, hd)
+
+
+def _scores(q, k, mask, scale, part):
+    """``_sdpa``'s scores (B,K,G,Sq,Sk) in float32, masked."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    q = q.reshape(B, Sq, K, H // K, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * scale
+    scores = _leave(scores, part)
+    return torch.where(mask[:, None, None, :, :], scores,
+                       torch.full_like(scores, NEG_INF))
+
+
+def _sdpa_split(q, k, v, valid, scale, part, sp):
+    """``_sdpa`` of one query per row over this rank's slice of a
+    sequence-parallel cache (``valid`` (B, n) its mask), merged with the
+    other data shards' by ``comm.sp_attn_combine``."""
+    B, Sq, H, hd = q.shape
+    scores = _scores(q, k, valid[:, None, :], scale, part)
+    top = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - top)
+    o = torch.einsum("bkgqs,bskh->bqkgh", _enter(p.to(v.dtype), part), v)
+    lay = lambda t: t.permute(0, 3, 1, 2)          # (B,K,G,q) -> (B,q,K,G)
+    out = comm.sp_attn_combine(lay(top[..., 0]), lay(p.sum(-1)), o,
+                               sp.groups)
+    return out.to(v.dtype).reshape(B, Sq, H, hd)
 
 
 def attention_train(params, x, spec, cfg, positions, q_chunk=1024,
@@ -406,13 +432,15 @@ def attention_prefill(params, x, spec, cfg, positions, cache_len,
 
     Window layers keep only the last ``window`` keys (ring layout, slot =
     pos % window).  Past ``q_chunk`` tokens the queries go in chunks, as
-    in training."""
+    in training.  A sequence-parallel cache (``ctx.seq_split``) keeps only
+    this rank's slice of the positions, or of the ring's slots."""
     tp, plan = _attn_tp(cfg)
     q, k, v = _project_qkv(params, x, spec, cfg, positions, tp, plan)
     B = x.shape[0]
     out = _attend(q, k, v, spec, cfg, positions, cfg.head_dim ** -0.5,
                   q_chunk, tp, plan)
 
+    sp = ctx.seq_split(spec.window)
     if spec.window is not None:
         w = min(spec.window, cache_len)
         # ring layout: entry for absolute position p lives at slot p % w.
@@ -427,10 +455,12 @@ def attention_prefill(params, x, spec, cfg, positions, cache_len,
         ck[bidx, slots] = tail_k
         cv[bidx, slots] = tail_v
         cache = {"k": ck, "v": cv}
+        if sp is not None:      # this rank's slots of the ring
+            cache = {n: c[:, sp.first:sp.first + sp.length].clone()
+                     for n, c in cache.items()}
     else:
-        pad = cache_len - x.shape[1]
-        cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
-                 "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+        first, n = (0, cache_len) if sp is None else (sp.first, sp.length)
+        cache = {"k": _positions(k, first, n), "v": _positions(v, first, n)}
     rest = _cache_hd(cfg)
     if rest is not None:
         cache = {n: comm.slice_model(c, rest, -1) for n, c in cache.items()}
@@ -439,11 +469,24 @@ def attention_prefill(params, x, spec, cfg, positions, cache_len,
                   tp), cache
 
 
+def _positions(t, first, n):
+    """Positions ``[first, first + n)`` of the prompt's ``t`` (B, S, ...),
+    zeros past its end."""
+    part = t[:, first:first + n]
+    return F.pad(part, (0, 0, 0, 0, 0, n - part.shape[1]))
+
+
 def attention_decode(params, x, spec, cfg, cache, pos):
     """One-token decode. x: (B,1,D); pos: (B,) absolute positions.
 
     Global layers: cache (B,Smax,K,hd), write at pos, mask j<=pos.
     Window layers: ring cache (B,w,K,hd), write at pos%w, mask by recency.
+
+    A sequence-parallel cache (``ctx.seq_split``) is this rank's slice of
+    positions (or slots) ``[first, first + n)``: the rank whose slice
+    holds the new entry writes it, the mask reads the slice's absolute
+    positions, and the ranks' attention over their slices is merged by
+    ``comm.sp_attn_combine``.
     """
     B = x.shape[0]
     tp, plan = _attn_tp(cfg)
@@ -455,7 +498,21 @@ def attention_decode(params, x, spec, cfg, cache, pos):
     else:
         ck, cv = cache["k"].clone(), cache["v"].clone()
     bidx = torch.arange(B, device=x.device)
-    if spec.window is not None:
+    sp = ctx.seq_split(spec.window)
+    if sp is not None:
+        w = sp.whole
+        at, top = ((pos % w, torch.clamp(pos, max=w - 1))
+                   if spec.window is not None else (pos, pos))
+        # the entry lands on the rank whose slice holds it; elsewhere the
+        # slot it is clamped to is written back unchanged
+        i = at.to(torch.long) - sp.first
+        mine = ((i >= 0) & (i < sp.length))[:, None, None]
+        i = torch.clamp(i, 0, sp.length - 1)
+        ck[bidx, i] = torch.where(mine, k[:, 0], ck[bidx, i])
+        cv[bidx, i] = torch.where(mine, v[:, 0], cv[bidx, i])
+        valid = (sp.first + torch.arange(sp.length, device=x.device)
+                 )[None, :] <= top[:, None]
+    elif spec.window is not None:
         w = ck.shape[1]
         slot = (pos % w).to(torch.long)
         ck[bidx, slot] = k[:, 0]
@@ -470,8 +527,11 @@ def attention_decode(params, x, spec, cfg, cache, pos):
         valid = torch.arange(Smax, device=x.device)[None, :] <= pos[:, None]
     ka, va = ((_kv_heads(ck, cfg, tp), _kv_heads(cv, cfg, tp))
               if plan == "qtp" else (ck, cv))
-    out = _sdpa(q, ka, va, valid[:, None, :], scale,
-                tp if plan == "hd" else None)
+    part = tp if plan == "hd" else None
+    if sp is None:
+        out = _sdpa(q, ka, va, valid[:, None, :], scale, part)
+    else:
+        out = _sdpa_split(q, ka, va, valid, scale, part, sp)
     dt = x.dtype
     y = _leave(torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt)), tp)
     if rest is not None:

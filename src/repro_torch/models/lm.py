@@ -25,12 +25,15 @@ import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import _dtypes
 from repro_torch.configs.base import (ArchConfig, AttnSpec, MambaSpec,
                                       MLSTMSpec, SLSTMSpec)
+from repro_torch.distributed import comm, ctx
+from repro_torch.distributed.sharding import model_partial
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -233,11 +236,30 @@ def _remat(fn, policy: str):
                      f"{policy!r}")
 
 
-def _unit_params(g, gp, r):
-    """The params of each block of repeat ``r`` of group ``g``: a shared
-    block's one set, or the r-th slice of a stacked one."""
-    return [bp if getattr(spec, "shared", False) else _index_tree(bp, r)
-            for spec, bp in zip(g.unit, gp["blocks"])]
+def _unit_params(cfg, gi, gp, r):
+    """The params of each block of repeat ``r`` of group ``gi``: a shared
+    block's one set, or the r-th slice of a stacked one.  A DTensor leaf
+    (the sharded step and serve functions pass the group leaves so) is
+    gathered over the fsdp axes here, one layer's slice at a time
+    (``comm.gather_layer``), inside the loop and, in training, inside the
+    checkpointed unit, so that its recompute gathers again."""
+    g = cfg.groups[gi]
+    return [_layer_leaves(cfg, bp, f"groups/{gi}/blocks/{bi}",
+                          None if getattr(spec, "shared", False) else r)
+            for bi, (spec, bp) in enumerate(zip(g.unit, gp["blocks"]))]
+
+
+def _layer_leaves(cfg, tree, name, r):
+    if isinstance(tree, dict):
+        return {k: _layer_leaves(cfg, v, f"{name}/{k}", r)
+                for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        env = ctx.get_env()
+        tp = (ctx.tp_of(env) if model_partial(name, tuple(tree.shape), cfg,
+                                               env) else None)
+        return comm.gather_layer(tree, r, env.fsdp, [
+            i for i, a in enumerate(env.axes) if a in env.dp], tp)
+    return tree if r is None else tree[r]
 
 
 def _run_groups(params, cfg, h, *, mode, positions=None, caches=None,
@@ -248,10 +270,11 @@ def _run_groups(params, cfg, h, *, mode, positions=None, caches=None,
     training, where each application of a unit is checkpointed by
     ``remat``."""
     if mode == "train":
-        for g, gp in zip(cfg.groups, params["groups"]):
-            def step(r, h, _g=g, _gp=gp):
+        for gi, (g, gp) in enumerate(zip(cfg.groups, params["groups"])):
+            def step(r, h, _g=g, _gp=gp, _gi=gi):
                 def unit_fn(h):
-                    for spec, bp in zip(_g.unit, _unit_params(_g, _gp, r)):
+                    for spec, bp in zip(_g.unit,
+                                        _unit_params(cfg, _gi, _gp, r)):
                         h, _ = apply_block(bp, h, cfg, spec, mode="train",
                                            positions=positions,
                                            q_chunk=q_chunk,
@@ -266,10 +289,10 @@ def _run_groups(params, cfg, h, *, mode, positions=None, caches=None,
         gc = caches["groups"][gi] if caches is not None else None
         keys = []
 
-        def step(r, h, g=g, gp=gp, gc=gc, keys=keys):
+        def step(r, h, g=g, gp=gp, gc=gc, keys=keys, gi=gi):
             out = []
-            for bi, (spec, bp) in enumerate(zip(g.unit,
-                                                _unit_params(g, gp, r))):
+            for bi, (spec, bp) in enumerate(zip(
+                    g.unit, _unit_params(cfg, gi, gp, r))):
                 c = (_index_tree(gc["blocks"][bi], r) if gc is not None
                      else None)
                 h, co = apply_block(bp, h, cfg, spec, mode=mode,

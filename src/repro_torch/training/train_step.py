@@ -15,6 +15,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import _dtypes
 from repro_torch.configs.base import ArchConfig
@@ -39,10 +40,17 @@ class TrainConfig:
     adamw: AdamWConfig = AdamWConfig()
 
 
+def _local(x) -> torch.Tensor:
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
 def make_loss_and_grads(cfg: ArchConfig, tcfg: TrainConfig):
     """Returns loss_and_grads(paths, leaves, tokens, labels) -> (loss,
     grads): the mean loss over ``tokens``' rows and each leaf's gradient
-    in ``grad_dtype``, accumulated over ``tcfg.microbatches``."""
+    in ``grad_dtype``, accumulated over ``tcfg.microbatches``.  A DTensor
+    leaf (the sharded step's group leaves, which the layer loop gathers
+    itself) gets its local part's gradient as the gathers' backward
+    leaves it: this rank's shard, already reduced."""
     gdt = _dtypes.torch_dtype(tcfg.grad_dtype)
 
     def value_and_grad(paths, leaves, tok, lab):
@@ -52,8 +60,8 @@ def make_loss_and_grads(cfg: ArchConfig, tcfg: TrainConfig):
                           exact_causal=tcfg.exact_causal, remat=tcfg.remat,
                           xent_chunk=tcfg.xent_chunk)
         grads = torch.autograd.grad(loss, xs, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(x) if g is None else g
-                               for x, g in zip(xs, grads)]
+        return loss.detach(), [torch.zeros_like(_local(x)) if g is None
+                               else _local(g) for x, g in zip(xs, grads)]
 
     def loss_and_grads(paths, leaves, tokens, labels):
         mb = tcfg.microbatches
@@ -66,7 +74,8 @@ def make_loss_and_grads(cfg: ArchConfig, tcfg: TrainConfig):
             return loss, [g.to(gdt) for g in grads]
         split = lambda t: t.reshape((mb, B // mb) + tuple(t.shape[1:]))
         toks, labs = split(tokens), split(labels)
-        grads = [torch.zeros(p.shape, dtype=gdt, device=p.device)
+        grads = [torch.zeros(_local(p).shape, dtype=gdt,
+                             device=_local(p).device)
                  for p in leaves]
 
         def step(i, loss):

@@ -468,6 +468,37 @@ def test_dry_run_counts_what_a_rank_runs(cases, name):
     assert an["dot_flops"] == want["flops"], name
 
 
+@pytest.mark.parametrize("name", DRY)
+def test_sharded_step_gathers_each_layer_in_its_loop(cases, name):
+    """Rank 1's step gathers a group leaf's slice over ``data`` once per
+    application of its block, per microbatch, and again in the full
+    remat's recompute (``fsdp_layer_gather``); before the loss it
+    gathers only the embedding's and the final norm's leaves that
+    ``data`` shards (``all_gather``)."""
+    from repro_torch.distributed.sharding import (MeshShape, param_pspec,
+                                                  spec_axes)
+    from repro_torch.models import lm
+    _, got, inputs = cases
+    c = inputs["steps"][name]
+    cfg = c["cfg"]
+    env = make_axis_env(MeshShape(("data", "model"), c["mesh"]), **c["env"])
+    shapes = lm.init_params(cfg, torch.Generator(), "meta")
+    layer = whole = 0
+    for leaf, x in zip(*flatten_with_names(shapes)[::2]):
+        spec = param_pspec(leaf, tuple(x.shape), cfg, env)
+        if env.axes["data"] == 1 or "data" not in [
+                a for e in spec for a in spec_axes(e)]:
+            continue
+        if leaf.startswith("groups/"):
+            layer += cfg.groups[int(leaf.split("/")[1])].repeat
+        else:
+            whole += 1
+    coll = got["dry"][name]["collectives"]
+    assert coll.get("fsdp_layer_gather", {}).get("calls", 0) \
+        == layer * c["mb"] * 2, name                 # remat "full"
+    assert coll.get("all_gather", {}).get("calls", 0) == whole, name
+
+
 @pytest.mark.parametrize("name", list(PORT_STEPS))
 def test_tensor_parallel_step_matches_one_device(cases, name):
     refs, got, _ = cases
@@ -527,8 +558,8 @@ def test_chip_smoke_tensor_parallel_phase_rehearses_on_the_cpu():
     cpu = torch.device("cpu")
     got = cs.tensor_parallel_phase(torch, cpu, smoke=True)
     kinds = [c["case"].split(":")[0] for c in got.cases]
-    assert kinds == ["b", "a", "b", "a", "c", "c", "c", "c", "d", "e", "e",
-                     "f"]
+    assert kinds == ["b", "a", "b", "a", "c", "c", "c", "c", "d", "e", "g",
+                     "g", "e", "f"]
     drops = {(c["impl"], c["factor"]): c["dropped"] for c in got.cases
              if c["case"].startswith("c:")}
     assert drops[("gspmd", 1.0)] > 0 and drops[("shardmap", 1.0)] > 0
