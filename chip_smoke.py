@@ -45,11 +45,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
    across both replicas.  Every child's parameters must equal the seed's,
    its tokens the seed's tokens, and both replica parents must have
    served pages.  Then one ``StragglerMonitor.mitigate`` backup fork, and
-   the FINRA workflow (``build_finra``, a 6 MB market tensor, 8 audit
-   rules) by fork and by message: equal results, and every audit child
-   faulted in the market's pages only.  All four copy kernels must have
-   launched, page_gather, page_gather_runs and cow_scatter through the
-   bulk-copy kernel;
+   the FINRA workflow (``launch/finra``'s functions, a 6 MB market from
+   numpy seed 0, 8 audit rules) by fork and by message: equal results,
+   each a numpy count of the market, and every audit child faulted in
+   the market's pages only.  All four copy kernels must have launched,
+   page_gather, page_gather_runs and cow_scatter through the bulk-copy
+   kernel;
+5b. the last two entry points (*examples*), each through its own reset
+   of the counts: ``launch.quickstart.run`` for gemma3-1b at full width
+   (a seed on one node remote-forked to a second, materialized, and 8
+   tokens served from parent and child): the child's tokens equal to the
+   parent's, every seed page faulted over RDMA, all five kernels
+   launched and the three bulk ones by a bulk route; then
+   ``launch.finra.run`` (gemma3-1b, 8 rules, a 6 MB market), each
+   transfer on a fresh 4-node cluster, held as in phase 5, the four copy
+   kernels launched;
 6. trace replay on pools on the card: Figure 20's spike (10,050
    invocations, 64 nodes, 4 KiB pages) under ``ForkOnDemand`` and
    ``KeepWarm``, whose event-log digests must equal ``BENCH_spikes.json``'s
@@ -170,9 +180,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 Launches made in phase 3 and in phase 4's checks are not in the counts:
 the counts are reset just before the serve run and read just after it.
-Phases 5, 6, each model of 7, 8, 9, 10 and 11 reset them before they start
-and print their own (phase 9 adds in those of rank 0's process, phase 10
-every rank's).
+Phases 5, each half of 5b, 6, each model of 7, 8, 9, 10 and 11 reset them
+before they start and print their own (phase 9 adds in those of rank 0's
+process, phase 10 every rank's).
 """
 from __future__ import annotations
 
@@ -949,13 +959,13 @@ def platform_phase(torch, dev, arch="gemma3-1b", market_mb=6.0,
     """Phase 5 on ``dev``; returns its summary.  The kernel counts are the
     caller's to reset and read."""
     from repro_torch.configs.base import get_arch
+    from repro_torch.launch import finra as finra_app
     from repro_torch.models import lm
     from repro_torch.net import Network
     from repro_torch.placement import ShardedSeed
     from repro_torch.platform.coordinator import Coordinator, FunctionDef
     from repro_torch.platform.node import NodeRuntime
     from repro_torch.platform.straggler import StragglerMonitor
-    from repro_torch.platform.workflow import build_finra, run_workflow
     from repro_torch.serving.engine import ServingEngine
 
     cfg = dataclasses.replace(get_arch(arch), compute_dtype="float32")
@@ -1044,54 +1054,15 @@ def platform_phase(torch, dev, arch="gemma3-1b", market_mb=6.0,
     print("[smoke] platform straggler " + json.dumps(straggler))
 
     # FINRA: fetch pre-materializes the market, the audit rules read it
-    market = torch.randn(int(market_mb * 2**20 / 4), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(2))
-    market_pages = -(-market.numel() // nodes[0].pool.page_elems)
-    audits = []
-
-    def fetch(inst, ctx):
-        if ctx["transfer"] == "message":
-            return {"market": market}
-        inst.add_tensor("globals/market", market)
-        return {"rows": market.numel()}
-
-    def audit(inst, ctx):
-        if "msg:fetchData" in ctx:
-            data = ctx["msg:fetchData"]["market"]      # deserialized copy
-            v = int((np.abs(data) > 3.5).sum())
-        else:
-            v = int((inst.ensure_tensor("globals/market").abs() > 3.5).sum())
-        audits.append((ctx["transfer"], inst.stats["pages_rdma"]))
-        return {"violations": v}
-
-    coord.register_function(FunctionDef("finra-fetch", cfg.name,
-                                        lambda: params, fetch))
-    coord.register_function(FunctionDef("finra-audit", cfg.name,
-                                        lambda: params, audit))
-    wf = build_finra(coord, market_mb=market_mb, n_rules=n_rules)
+    market = finra_app.make_market(market_mb)
     finra = {}
-    for transfer in ("fork", "message"):
-        sim0, msg0 = net.sim_time, net.meter["msg_bytes"]
-        t0 = time.perf_counter()
-        res = run_workflow(coord, wf, {"transfer": transfer},
-                           transfer=transfer,
-                           fan_out={"runAuditRule": n_rules})
-        sync_dev(torch, dev)
-        finra[transfer] = {
-            "wall_s": time.perf_counter() - t0,
-            "sim_time_s": net.sim_time - sim0,
-            "msg_bytes": net.meter["msg_bytes"] - msg0,
-            "audit_pages_rdma": [p for t, p in audits if t == transfer],
-            "violations": [r["violations"] for r in res["runAuditRule"]]}
-    if finra["fork"]["violations"] != finra["message"]["violations"] \
-            or len(finra["fork"]["violations"]) != n_rules:
-        raise AssertionError(f"FINRA results differ: {finra}")
-    for p in finra["fork"]["audit_pages_rdma"]:
-        if not market_pages <= p <= market_pages + 1:
-            raise AssertionError(f"an audit child faulted {p} pages, not the "
-                                 f"market's {market_pages} (+1 prefetch)")
-    if finra["fork"]["msg_bytes"] or not finra["message"]["msg_bytes"]:
-        raise AssertionError(f"FINRA message bytes: {finra}")
+    for transfer in finra_app.TRANSFERS:
+        wf = finra_app.register_finra(coord, cfg, params, market, transfer,
+                                      dev)
+        finra[transfer] = finra_app.run_transfer(coord, wf, transfer,
+                                                 n_rules, dev)
+    market_pages = check_finra(finra, market, n_rules,
+                               nodes[0].pool.page_elems)
     print("[smoke] platform finra " + json.dumps(finra))
     return {"arch": cfg.name, "d_model": cfg.d_model,
             "layers": cfg.num_layers, "vocab": cfg.vocab_size,
@@ -1102,6 +1073,58 @@ def platform_phase(torch, dev, arch="gemma3-1b", market_mb=6.0,
             "finra": finra, "market_pages": market_pages,
             "gc": {k: v for k, v in coord.gc().items()
                    if k in ("seeds", "cached", "dangling", "rereplicated")}}
+
+
+def check_finra(finra, market, n_rules, page_elems) -> int:
+    """Hold FINRA's two transfers (``launch.finra.run_transfer`` records)
+    to each other and to the market: the same violations, a numpy count
+    of ``market``, on every rule; every fork audit child faulted the
+    market's pages (plus one of prefetch), never the model's; only the
+    message path serialized.  Returns the market's pages."""
+    from repro_torch.launch.finra import THRESHOLD
+    want = [int((np.abs(market) > THRESHOLD).sum())] * n_rules
+    for transfer, r in finra.items():
+        if r["violations"] != want:
+            raise AssertionError(f"FINRA {transfer}: violations "
+                                 f"{r['violations']}, numpy counts {want}")
+    pages = -(-market.size // page_elems)
+    for p in finra["fork"]["audit_pages_rdma"]:
+        if not pages <= p <= pages + 1:
+            raise AssertionError(f"an audit child faulted {p} pages, not the "
+                                 f"market's {pages} (+1 prefetch)")
+    if finra["fork"]["msg_bytes"] or not finra["message"]["msg_bytes"]:
+        raise AssertionError(f"FINRA message bytes: {finra}")
+    return pages
+
+
+def quickstart_example(dev, arch="gemma3-1b") -> dict:
+    """Phase 5b, first half: ``launch.quickstart.run`` on ``dev``; the
+    child's tokens must equal the parent's (``run`` raises otherwise) and
+    it must have faulted every page of the seed."""
+    from repro_torch.launch import quickstart
+    rec = vars(quickstart.run(["--arch", arch, "--device", str(dev)]))
+    if rec["pages_rdma"] != rec["seed_pages"]:
+        raise AssertionError(f"quickstart: the child faulted "
+                             f"{rec['pages_rdma']} pages of the seed's "
+                             f"{rec['seed_pages']}")
+    print("[smoke] examples quickstart " + json.dumps(rec))
+    return rec
+
+
+def finra_example(dev, arch="gemma3-1b", market_mb=6.0, n_rules=8) -> dict:
+    """Phase 5b, second half: ``launch.finra.run`` on ``dev``, each
+    transfer on a fresh 4-node cluster, held by ``check_finra``."""
+    from repro_torch.launch import finra
+    from repro_torch.memory.pool import PAGE_ELEMS
+    rec = finra.run(["--arch", arch, "--rules", str(n_rules),
+                     "--market-mb", str(market_mb), "--device", str(dev)])
+    out = {"arch": rec.arch, "rules": rec.rules,
+           "market_elems": rec.market_elems, **rec.transfers,
+           "market_pages": check_finra(rec.transfers,
+                                       finra.make_market(market_mb),
+                                       n_rules, PAGE_ELEMS)}
+    print("[smoke] examples finra " + json.dumps(out))
+    return out
 
 
 def fig22_replay(device, faults=None):
@@ -2167,6 +2190,13 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     run_phase(torch, "platform", lambda: platform_phase(torch, dev),
               required=KERNELS, bulk=BULK_KERNELS)
+    examples = {}
+    _, examples["quickstart"] = run_phase(
+        torch, "examples", lambda: quickstart_example(dev),
+        required=KERNELS, bulk=BULK_KERNELS)
+    _, examples["finra"] = run_phase(
+        torch, "examples", lambda: finra_example(dev),
+        required=COPY_KERNELS)
     _, replay_launches = run_phase(torch, "replay",
                                    lambda: replay_phase(torch, dev),
                                    required=())
@@ -2205,6 +2235,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "design": DESIGN[name],
             "launches": launches[name], "pages": pages[name],
+            "examples_launches": {e: n[name] for e, n in examples.items()},
             "models_launches": {a: n[name] for a, n in models.items()},
             "train_launches": train_launches[name],
             "distributed_launches": dist_launches[name],

@@ -75,6 +75,12 @@ def reset_launches() -> None:
     routes.clear()
 
 
+def record(kernel_name: str, event: str, n: int = 1) -> None:
+    """Count a kernel-layer event in the meter (e.g. pages moved by an
+    impl), as ``kernel.{name}.{event}``."""
+    _meter[f"kernel.{kernel_name}.{event}"] += n
+
+
 def kernel_meters() -> dict:
     """Snapshot of the kernel meter."""
     return dict(_meter)

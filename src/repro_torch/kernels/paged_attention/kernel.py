@@ -21,6 +21,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_G = 16          # query heads per kv head (the kernel's largest bucket)
 MAX_HEAD_DIM = 256  # one thread per head dimension
+NEG_INF = -1e30     # masked scores and the running max's seed (kNegInf)
 TMA, LOADS = "tma", "loads"
 
 _sm_counts: dict = {}

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-NEG_INF = -1e30
+from repro_torch.kernels.paged_attention.kernel import NEG_INF
 
 
 def paged_attention_ref(q, kv_pages_k, kv_pages_v, page_table, lengths,

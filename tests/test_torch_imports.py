@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports jax, jaxlib, ml_dtypes, msgpack or the reference
-package ``repro``, and importing the serve and train entry points loads
-none of them."""
+package ``repro``, and importing the serve, train, quickstart and FINRA
+entry points loads none of them."""
 import ast
 import os
 import subprocess
@@ -40,6 +40,7 @@ def test_no_banned_imports(path):
 
 def test_serve_import_loads_no_reference_or_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train,"
+            " repro_torch.launch.quickstart, repro_torch.launch.finra,"
             " repro_torch.models.convert;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r});"

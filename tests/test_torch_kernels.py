@@ -348,6 +348,10 @@ def test_dispatch_meters_and_launch_counts():
     assert dispatch.kernel_meters() == {"kernel.page_gather.torch": 1}
     dispatch.reset_meters()
     assert not dispatch.launches               # the plain versions launch nothing
+    dispatch.record("page_gather", "pages", 3)
+    dispatch.record("page_gather", "pages")
+    assert dispatch.kernel_meters() == {"kernel.page_gather.pages": 4}
+    dispatch.reset_meters()
     with pytest.raises(ValueError):
         dispatch.resolve_backend("jnp", kernel_name="page_gather",
                                  device=torch.device("cpu"))

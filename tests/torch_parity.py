@@ -95,14 +95,13 @@ def every_kind(cfg):
 
 def smoke_cfgs(name, kinds=False, **kw):
     """(reference config, port config) of arch ``name`` at smoke size in
-    fp32, with the fields ``kw`` replaced; the two must be equal.  With
-    ``kinds`` the unit is first cut to one block of each kind
-    (``every_kind``)."""
+    fp32 unless ``kw`` gives another ``compute_dtype``, with the fields
+    ``kw`` replaced; the two must be equal.  With ``kinds`` the unit is
+    first cut to one block of each kind (``every_kind``)."""
     cut = every_kind if kinds else (lambda cfg: cfg)
-    jc = dataclasses.replace(jreduce(cut(jget_arch(name))),
-                             compute_dtype="float32", **kw)
-    tc = dataclasses.replace(treduce(cut(tget_arch(name))),
-                             compute_dtype="float32", **kw)
+    kw = {"compute_dtype": "float32", **kw}
+    jc = dataclasses.replace(jreduce(cut(jget_arch(name))), **kw)
+    tc = dataclasses.replace(treduce(cut(tget_arch(name))), **kw)
     assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
     return jc, tc
 
