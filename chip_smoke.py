@@ -24,15 +24,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    split across blocks; time kernel, plain version and library call with
    CUDA events (the kernel from host ids through its wrapper, the library
    call with ids already on the card), the device time alone (CUDA-graph
-   replay) and the host time of one call; split one page's
-   ``cow_scatter`` call into its host stages, and one long sequence's
-   attention into the device time of its two kernels;
+   replay, through the wrapper wherever the call uploads nothing) and the
+   host time of one call; split one page's ``cow_scatter`` call and a
+   16-page run's ``cow_scatter_runs`` call into their host stages, and
+   one long sequence's attention into the device time of its two kernels;
 4. run the port's serve path (``repro_torch.launch.serve.main``) for
    gemma3-1b at full width: 3 nodes, a seed packed on node0, two children
    forked over the modelled RDMA network, 4 requests and the
    copy-on-write fork demo.  Every kernel's launch count must be > 0,
-   page_gather, page_gather_runs and cow_scatter must have gone through
-   the bulk-copy kernel, every child's parameters must equal the seed's,
+   the four copy kernels must have gone through the bulk-copy kernel,
+   every child's parameters must equal the seed's,
    and every request's paged-engine logits must be close to the non-paged
    model's on the same card; the pages each kernel moved and the route
    counts are printed;
@@ -56,10 +57,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (a seed on one node remote-forked to a second, materialized, and 8
    tokens served from parent and child): the child's tokens equal to the
    parent's, every seed page faulted over RDMA, all five kernels
-   launched and the three bulk ones by a bulk route; then
+   launched and the four copy kernels by a bulk route; then
    ``launch.finra.run`` (gemma3-1b, 8 rules, a 6 MB market), each
    transfer on a fresh 4-node cluster, held as in phase 5, the four copy
-   kernels launched;
+   kernels launched, each by a bulk route;
 6. trace replay on pools on the card: Figure 20's spike (10,050
    invocations, 64 nodes, 4 KiB pages) under ``ForkOnDemand`` and
    ``KeepWarm``, whose event-log digests must equal ``BENCH_spikes.json``'s
@@ -68,7 +69,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    invocations, 32 nodes), whose digest must equal ``BENCH_faults.json``'s
    ``crash``; then one crash plan on a small cluster,
    replayed on the card and on host pools, with equal summary digests.
-   Copy kernels must have launched;
+   Copy kernels must have launched, each by a bulk route;
 7. the model families (*models*): moonshot-v1-16b-a3b at full width, cut
    to 4 of its 48 layers, through the serve driver (seed on node0, one
    child on node1, 4 requests and the fork demo): the child bit-equal to
@@ -95,7 +96,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    bit.  (d) train-100m: 4 steps straight against 2, a checkpoint, a
    restore and 2 more, within ``RESTART_TOL``; the checkpoint's bytes and
    save and load times beside a fork of the same state.  The four copy
-   kernels must have launched, the three bulk ones by a bulk route;
+   kernels must have launched, each by a bulk route;
 9. sharded data-parallel training (*distributed*): ``launch/elastic``
    (``--check``) spawns 4 ranks, processes that share the card over gloo.
    train-100m at full width, fp32, global batch 8 x 512, 12 steps: dp=2
@@ -113,7 +114,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    step 8 from the joiner's and from the donor's state: losses bit-equal,
    params equal but for ``embed/tok`` within ``2 lr``; (e) every loss
    finite, the last below the first; (f) the four copy kernels launched
-   (in rank 0, which forks), the three bulk ones by a bulk route.  One
+   (in rank 0, which forks), each by a bulk route.  One
    ``[smoke] distributed:`` line: the collectives gloo takes on CUDA
    tensors, step times, per-rank state bytes and peak memory, the
    collectives' calls, bytes and seconds, the fork against the checkpoint;
@@ -215,12 +216,12 @@ REPLACES = {
 }
 SOURCE = {k: "src/repro_torch/kernels/csrc/bulk_copy.cu" for k in KERNELS}
 SOURCE["paged_attention"] = "src/repro_torch/kernels/csrc/paged_attention.cu"
-SOURCE["cow_scatter_runs"] = "src/repro_torch/kernels/csrc/paging.cu"
 DESIGN = {"page_gather": "bulk-tma", "page_gather_runs": "bulk-tma",
-          "cow_scatter": "bulk-tma", "cow_scatter_runs": "copy_rows",
+          "cow_scatter": "bulk-tma", "cow_scatter_runs": "bulk-tma",
           "paged_attention": "split-tma"}
 BULK = ("bulk-value", "bulk-device")
-BULK_KERNELS = ("page_gather", "page_gather_runs", "cow_scatter")
+BULK_KERNELS = ("page_gather", "page_gather_runs", "cow_scatter",
+                "cow_scatter_runs")
 ONE_SPLIT = ("gemma-decode", "moonshot-decode")   # attention cases, P = 1
 COPY_KERNELS = KERNELS[:4]
 # phase 7: moonshot at full width, cut to 4 of its 48 layers (all 48 are
@@ -405,11 +406,19 @@ def copy_cases(limits):
         case("cow_scatter", "misaligned-payload", "float32", 64, 4096,
              np.array([3, 9, 10]), "copy_rows", misaligned=True),
         case("cow_scatter_runs", "embed-adopt", "float32", n_emb + 64, E,
-             ([32], [n_emb]), "copy_rows"),
+             ([32], [n_emb]), "bulk-value"),
         case("cow_scatter_runs", "moe-expert-adopt", "float32", n_exp + 64,
-             E, ([32], [n_exp]), "copy_rows"),
+             E, ([32], [n_exp]), "bulk-value"),
         case("cow_scatter_runs", "skewed-runs", "bfloat16", 8192, E,
-             ([0, 3000, 5000, 7000], [2500, 1, 1999, 900]), "copy_rows"),
+             ([0, 3000, 5000, 7000], [2500, 1, 1999, 900]), "bulk-value"),
+        case("cow_scatter_runs", "runs-at-capacity", "bfloat16",
+             3 * cap_spans + 3, 4096, runs(cap_spans), "bulk-value"),
+        case("cow_scatter_runs", "runs-past-capacity", "bfloat16",
+             3 * cap_spans + 6, 4096, runs(cap_spans + 1), "bulk-device"),
+        case("cow_scatter_runs", "odd-row", "float32", 256, 1001,
+             ([0, 50, 120], [40, 3, 100]), "copy_rows"),
+        case("cow_scatter_runs", "misaligned-payload", "float32", 64, 4096,
+             ([3, 20], [2, 5]), "copy_rows", misaligned=True),
     ] + replay_cases(case)
 
 
@@ -421,8 +430,6 @@ def replay_cases(case):
     starts off a 16 KB boundary."""
     shapes = (("one-page-of-16", [37], [1]), ("16-page-run", [33], [16]),
               ("64-pages-2-vmas", [101, 170], [32, 32]))
-    route = {"page_gather": "bulk-value", "page_gather_runs": "bulk-value",
-             "cow_scatter": "bulk-value", "cow_scatter_runs": "copy_rows"}
     out = []
     for name in COPY_KERNELS:
         for label, starts, lens in shapes:
@@ -431,7 +438,7 @@ def replay_cases(case):
                                     for s, n in zip(starts, lens)]))
             out.append(case(name, f"replay-{label}", "float32",
                             4096, FIG20["page_elems"],
-                            spec, route[name]))
+                            spec, "bulk-value"))
     return out
 
 
@@ -536,23 +543,24 @@ def run_copy_case(torch, case):
     nbytes = 2 * n * E * frames.element_size()
     # a graph keeps every call's output: 3 calls past 4 GiB moved
     reps = 3 if nbytes > (4 << 30) else 10 if nbytes > (256 << 20) else 20
-    # device-only times where the call uploads nothing (a graph cannot
-    # capture a copy from pageable host memory); the run-table scatter's
-    # wrapper uploads its tables, so its kernel is timed from tables
-    # uploaded beforehand
-    if name == "cow_scatter_runs":
+    # device-only times, through the wrapper where the call uploads nothing
+    # (a graph cannot capture a copy from pageable host memory, so these
+    # show that it does not); the run-table scatter's copy_rows route
+    # uploads its tables, so that kernel is timed from tables uploaded
+    # beforehand
+    if route[0] == "bulk-value" or case.get("device_ids"):
+        kern_alone = kern
+    elif name == "cow_scatter_runs" and route[0] == "copy_rows":
         from repro_torch.kernels.cow_scatter import kernel as csk
         from repro_torch.kernels.page_gather.plan import run_offsets
         tables = run_offsets(*(np.asarray(x, np.int64) for x in spec), dev)
 
         def kern_alone():
-            return csk.cow_scatter_runs(kernel_target, *tables, pages, E)
-    elif route[0] == "bulk-value" or case.get("device_ids"):
-        kern_alone = kern
+            return csk.copy_rows_runs(kernel_target, *tables, pages, E)
     else:
         kern_alone = None
     return {"name": name, "case": label, "dtype": case["dtype"],
-            "design": "bulk-tma" if route[0] in BULK else "copy_rows",
+            "design": DESIGN[name] if route[0] in BULK else "copy_rows",
             "route": route[0], "pages": n, "page_elems": E,
             "max_abs_err": 0.0, "ms": time_ms(torch, kern),
             "plain_ms": time_ms(torch, plain),
@@ -598,6 +606,57 @@ def host_stages(torch):
         "count_launch": lambda: dispatch.count_launch(
             "cow_scatter", pages=1, route="bulk-value"),
         "whole_wrapper": lambda: cs.cow_scatter(frames, ids, pages),
+        "index_copy_": lambda: frames.index_copy_(0, ids_dev, pages),
+    }
+    return {k: host_us(torch, f, 2000) for k, f in stages.items()}
+
+
+def host_stages_runs(torch):
+    """Host microseconds of each stage of ``cow_scatter_runs`` through its
+    wrapper at the replay's 16-page run (fp32 pages of 1,024 elements, a
+    pool of 4,096 frames), beside the whole call, ``cow_scatter`` of the
+    same 16 pages and ``index_copy_``.  ``numpy_plan`` is what building
+    the span table in numpy (``plan.scatter_spans``) would add: the
+    by-value route builds it in C instead."""
+    from repro_torch.kernels import build, bulk_copy, dispatch
+    from repro_torch.kernels.cow_scatter import kernel, ops as cs
+    from repro_torch.kernels.page_gather.ops import run_table
+    from repro_torch.kernels.page_gather.plan import scatter_spans
+    E, F = FIG20["page_elems"], 4096
+    dev = torch.device("cuda", torch.cuda.current_device())
+    frames = torch.zeros(F, E, device=dev)
+    pages = torch.ones(16, E, device=dev)
+    starts, lens = np.array([33], np.int64), np.array([16], np.int64)
+    ids = np.arange(33, 49, dtype=np.int32)
+    ids_dev = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    isz = frames.element_size()
+    row, limit = E * isz, frames.numel() * isz
+    fn = bulk_copy.scatter_runs_entry()
+    fp, pp = frames.data_ptr(), pages.data_ptr()
+    stream = build.stream(dev)
+    cap = bulk_copy.limits()["spans"]
+    stages = {
+        "run_table": lambda: run_table(starts, lens, F),
+        "resolve_backend": lambda: dispatch.resolve_backend(
+            "auto", kernel_name="cow_scatter", device=dev),
+        "pages_sum": lambda: int(lens.sum()),
+        "payload": lambda: cs._payload(pages, 16, frames, frames.dtype, E),
+        "check_args": lambda: kernel._check_args(frames, pages, E),
+        "runs_route": lambda: bulk_copy.runs_route(1, row, limit, cap, fp,
+                                                   pp),
+        "stream": lambda: build.stream(dev),
+        "tables_to_bytes": lambda: (starts.tobytes(), lens.tobytes()),
+        "c_call_and_launch": lambda: fn(fp, pp, starts.tobytes(),
+                                        lens.tobytes(), 1, row, limit,
+                                        stream),
+        "count_launch": lambda: dispatch.count_launch(
+            "cow_scatter_runs", pages=16, route="bulk-value"),
+        "numpy_plan": lambda: bulk_copy.span_table(
+            *scatter_spans(starts, lens, row, limit)),
+        "whole_wrapper": lambda: cs.cow_scatter_runs(frames, starts, lens,
+                                                     pages),
+        "cow_scatter_whole_wrapper": lambda: cs.cow_scatter(frames, ids,
+                                                            pages),
         "index_copy_": lambda: frames.index_copy_(0, ids_dev, pages),
     }
     return {k: host_us(torch, f, 2000) for k, f in stages.items()}
@@ -2175,6 +2234,8 @@ def main() -> int:
         rows.append(r)
     print("[smoke] cow_scatter host stages, one fp32 page (us): "
           + json.dumps(host_stages(torch)))
+    print("[smoke] cow_scatter_runs host stages, the replay's 16-page run "
+          "(us): " + json.dumps(host_stages_runs(torch)))
     for case in attention_cases():
         for dtype in (torch.float32, torch.bfloat16):
             r = run_attention_case(torch, case, dtype)
@@ -2196,10 +2257,10 @@ def main() -> int:
         required=KERNELS, bulk=BULK_KERNELS)
     _, examples["finra"] = run_phase(
         torch, "examples", lambda: finra_example(dev),
-        required=COPY_KERNELS)
+        required=COPY_KERNELS, bulk=BULK_KERNELS)
     _, replay_launches = run_phase(torch, "replay",
                                    lambda: replay_phase(torch, dev),
-                                   required=())
+                                   required=(), bulk=BULK_KERNELS)
     if not sum(replay_launches[k] for k in COPY_KERNELS):
         raise AssertionError(f"replay launched no copy kernel: "
                              f"{replay_launches}")

@@ -3,16 +3,19 @@ and moved with the Tensor Memory Accelerator's bulk copies.
 
 ``scatter_ids`` serves cow_scatter and scatter_patch; ``gather_ids``
 page_gather and gather_assemble; ``copy_spans`` the run-table gather, from
-the plan of ``page_gather/plan.py:run_spans``.  A table of host ids or
-spans within the kernel's by-value capacity (:func:`limits`) travels
-inside the launch: no allocation, no host-to-device copy, no
-synchronisation.  A larger host table is copied to the device first, and
-ids already on the device are read there, by the same kernel.  Each
-returns the route it took (``bulk-value`` or ``bulk-device``), or None
-when the addresses or sizes are not 16-byte multiples and nothing was
-launched or uploaded: the caller then takes ``copy_rows``
-(``csrc/paging.cu``).  Launches go on PyTorch's current stream and do not
-synchronise.
+the plan of ``page_gather/plan.py:run_spans``; ``scatter_runs`` the
+run-table scatter (cow_scatter_runs), whose span table the kernel library
+builds from the host runs (past the by-value capacity it hands
+``plan.py:scatter_spans``' table, the same plan in numpy, to
+``copy_spans``).  A table of host ids, spans or runs within the kernel's
+by-value capacity (:func:`limits`) travels inside the launch: no
+allocation, no host-to-device copy, no synchronisation.  A larger host
+table is copied to the device first, and ids already on the device are
+read there, by the same kernel.  Each returns the route it took
+(``bulk-value`` or ``bulk-device``), or None when the addresses or sizes
+are not 16-byte multiples and nothing was launched or uploaded: the caller
+then takes ``copy_rows`` (``csrc/paging.cu``).  Launches go on PyTorch's
+current stream and do not synchronise.
 """
 from __future__ import annotations
 
@@ -22,8 +25,12 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.page_gather.plan import scatter_spans
 
+# _B: a bytes object, passed as a pointer to its buffer (cheaper per call
+# than an array's ``ctypes.data``)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_B = ctypes.c_char_p
 NOT_BULK = -1                  # csrc/bulk_copy.cu: kNotBulk
 BULK_VALUE, BULK_DEVICE = "bulk-value", "bulk-device"
 
@@ -70,6 +77,23 @@ def ids_route(ids, row_bytes: int, capacity: int, *ptrs: int):
     if isinstance(ids, np.ndarray) and ids.size <= capacity:
         return BULK_VALUE
     return BULK_DEVICE
+
+
+def runs_route(n_runs: int, row_bytes: int, limit_bytes: int,
+               capacity: int, *ptrs: int):
+    """The route a run-table scatter takes, decided on the host before
+    anything is uploaded: ``bulk-value`` for up to ``capacity`` runs,
+    ``bulk-device`` past it, None where the rows, the destination's end or
+    the base pointers are off 16 bytes.  Every span of the scatter starts
+    at a multiple of the row on both sides and is a multiple of the row
+    long, or ends at the destination's end, so a bulk route is taken only
+    where :func:`spans_aligned` holds on its table."""
+    bits = row_bytes | limit_bytes
+    for p in ptrs:
+        bits |= p
+    if bits & 15:
+        return None
+    return BULK_VALUE if n_runs <= capacity else BULK_DEVICE
 
 
 def _ids_copy(entry: str, dst: torch.Tensor, src: torch.Tensor, ids,
@@ -128,4 +152,36 @@ def copy_spans(dst: torch.Tensor, src: torch.Tensor, table: np.ndarray):
     if err == NOT_BULK:
         return None
     build.check(err, "bulk_copy_spans")
+    return route
+
+
+def scatter_runs_entry():
+    """The C entry ``bulk_scatter_runs`` (dst, src, starts, lens, n,
+    row_bytes, limit_bytes, stream), its tables passed as ``bytes``."""
+    return build.function("bulk_copy", "bulk_scatter_runs",
+                          (_P, _P, _B, _B, _I, _L, _L, _P))
+
+
+def scatter_runs(dst: torch.Tensor, src: torch.Tensor, starts: np.ndarray,
+                 lens: np.ndarray, row_bytes: int, limit_bytes: int):
+    """dst byte rows ``starts[i] + j`` <- src byte row ``offs[i] + j`` for
+    ``j < lens[i]`` (``offs`` the exclusive cumsum of ``lens``), in place,
+    stopping at dst byte ``limit_bytes``.  ``starts``, ``lens``: host 1-D
+    int64 arrays, ``lens >= 1``, range-checked by the caller; runs must not
+    overlap.  Past the by-value capacity the table of
+    ``plan.scatter_spans`` goes through :func:`copy_spans`."""
+    dp, sp = dst.data_ptr(), src.data_ptr()
+    route = runs_route(len(starts), row_bytes, limit_bytes,
+                       limits()["spans"], dp, sp)
+    if route is None:
+        return None                    # not bulk: upload nothing
+    if route == BULK_DEVICE:
+        return copy_spans(dst, src, span_table(
+            *scatter_spans(starts, lens, row_bytes, limit_bytes)))
+    err = scatter_runs_entry()(dp, sp, starts.tobytes(), lens.tobytes(),
+                               len(starts), row_bytes, limit_bytes,
+                               build.stream(dst.device))
+    if err == NOT_BULK:
+        return None
+    build.check(err, "bulk_scatter_runs")
     return route

@@ -14,7 +14,6 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.cow_scatter import kernel
 from repro_torch.kernels.cow_scatter.ref import cow_scatter_ref
 from repro_torch.kernels.page_gather.ops import kernel_ids, run_table
-from repro_torch.kernels.page_gather.plan import run_offsets
 from repro_torch.kernels.page_gather.ref import expand_runs
 
 
@@ -67,8 +66,7 @@ def cow_scatter_runs(frames: torch.Tensor, starts, lens, pages, *,
     if impl == dispatch.IMPL_TORCH:
         ids = torch.from_numpy(expand_runs(starts, lens)).to(frames.device)
         return cow_scatter_ref(frames, ids, payload)
-    st, offs = run_offsets(starts, lens, frames.device)
-    return kernel.cow_scatter_runs(frames, st, offs, payload, E)
+    return kernel.cow_scatter_runs(frames, starts, lens, payload, E)
 
 
 def scatter_patch(t: torch.Tensor, page_ids, rows, *, page_elems: int,

@@ -1,22 +1,26 @@
 // Bulk page copies for Hopper: page_gather (and gather_assemble, which
-// uses the same entry), page_gather_runs, and cow_scatter (and
-// scatter_patch).
+// uses the same entry), page_gather_runs, cow_scatter (and scatter_patch)
+// and cow_scatter_runs.
 //
 // Replaces the Pallas TPU kernels page_gather and page_gather_runs
 // (src/repro/kernels/page_gather/kernel.py::page_gather, ::page_gather_runs)
-// and cow_scatter (src/repro/kernels/cow_scatter/kernel.py::cow_scatter).
+// and cow_scatter and cow_scatter_runs
+// (src/repro/kernels/cow_scatter/kernel.py::cow_scatter, ::cow_scatter_runs).
 //
 // What bounds it: bytes (each page read once and written once over the
 // card's 3.35 TB/s; there is no arithmetic) and, for the small copies of
-// the main path (one 128 KiB weight page, a 26-page KV column), the cost
-// of getting a launch onto the card.  The design:
+// the main path (one 128 KiB weight page, a 26-page KV column, a replay's
+// 16-page 4 KiB run), the cost of getting a launch onto the card.  The
+// design:
 //   * the index table travels in the launch.  Up to kIdsMax ids or
 //     kSpansMax spans are packed into a __grid_constant__ kernel parameter
 //     (kernel parameters may take 32,764 bytes with CUDA >= 12.1, 4,096
 //     before), so a call needs no allocation, no host-to-device copy and
 //     no synchronisation.  Three size classes keep the parameter block of
-//     a small table small.  Larger tables, and ids the caller already holds
-//     on the device, are read from device memory by the same kernel;
+//     a small table small.  The run-table scatter's span table is built
+//     here from the host runs (bulk_scatter_runs), so its caller plans
+//     nothing.  Larger tables, and ids the caller already holds on the
+//     device, are read from device memory by the same kernel;
 //   * the body moves bytes with the Tensor Memory Accelerator's 1-D bulk
 //     copies.  A persistent grid of kBlocksPerSm blocks per SM; in each
 //     block one thread keeps a ring of kStages chunks of kChunk bytes in
@@ -344,6 +348,38 @@ bool aligned(const void* a, const void* b) {
   return (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
 }
 
+// The run-table scatter's span table, built in the launch from the host
+// runs (plan.py's scatter_spans is the same plan in numpy, for the tables
+// past kSpansMax that are uploaded): run i is the span from payload byte
+// offs[i] * row (offs the exclusive cumsum of lens) to frame byte
+// starts[i] * row, lens[i] * row bytes long.  Zero-length runs are left
+// out; destination bytes at or past `limit` are dropped.  With row and
+// limit multiples of 16, so is every offset and size.
+template <int N>
+int runs_by_value(void* dst, const void* src, const int64_t* starts,
+                  const int64_t* lens, int n, int64_t row, int64_t limit,
+                  cudaStream_t s) {
+  Spans<SpansValue<N>> p;
+  p.src = static_cast<const char*>(src);
+  p.dst = static_cast<char*>(dst);
+  int k = 0;
+  int64_t off = 0, end = 0;
+  for (int i = 0; i < n; ++i) {
+    if (starts[i] < 0 || lens[i] < 0) return (int)cudaErrorInvalidValue;
+    const int64_t d = starts[i] * row, o = off;
+    int64_t nb = lens[i] * row;
+    off += nb;
+    if (nb > limit - d) nb = limit - d;
+    if (nb <= 0) continue;
+    p.tab.src[k] = o;
+    p.tab.dst[k] = d;
+    p.tab.end[k] = end += nb;
+    ++k;
+  }
+  p.tab.n = k;
+  return launch(p, end, s);
+}
+
 // The entry of a row-id plan: host ids of up to kIdsMax travel in the
 // launch (three size classes), others are read from ids_dev.
 template <template <class> class Plan>
@@ -429,6 +465,32 @@ int bulk_copy_spans(void* dst, const void* src, const int64_t* spans,
   p.tab.n = n;
   p.tab.t = spans_dev;
   return launch(p, spans[3 * (int64_t)n - 1], s);
+}
+
+// The run-table scatter, frames[starts[i] + j] <- pages[offs[i] + j] for
+// j < lens[i] (rows of row_bytes, offs the exclusive cumsum of lens),
+// stopping at frames byte limit_bytes.  starts and lens are host int64
+// tables of n <= spans_max runs; their span table is built here and
+// travels in the launch, so the call allocates nothing, copies nothing to
+// the card and does not synchronise.  Runs must not overlap.  Returns
+// kNotBulk, launching nothing, unless the pointers, the row and the limit
+// are 16-byte multiples.
+int bulk_scatter_runs(void* dst, const void* src, const int64_t* starts,
+                      const int64_t* lens, int n, int64_t row_bytes,
+                      int64_t limit_bytes, void* stream) {
+  if (n <= 0 || row_bytes <= 0 || limit_bytes <= 0) return 0;
+  if (!aligned(dst, src) || ((row_bytes | limit_bytes) & 15)) return kNotBulk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= kSmall)
+    return runs_by_value<kSmall>(dst, src, starts, lens, n, row_bytes,
+                                 limit_bytes, s);
+  if (n <= kSpansMid)
+    return runs_by_value<kSpansMid>(dst, src, starts, lens, n, row_bytes,
+                                    limit_bytes, s);
+  if (n <= kSpansMax)
+    return runs_by_value<kSpansMax>(dst, src, starts, lens, n, row_bytes,
+                                    limit_bytes, s);
+  return (int)cudaErrorInvalidValue;   // past spans_max: bulk_copy_spans
 }
 
 }  // extern "C"

@@ -1,18 +1,21 @@
-// Page copies of the fork path's data plane: page_gather, page_gather_runs,
-// cow_scatter and cow_scatter_runs.
+// Row copies of the fork path's data plane, copy_rows: the route of
+// page_gather, page_gather_runs, cow_scatter and cow_scatter_runs where the
+// bulk-copy kernel (bulk_copy.cu) cannot take the rows, because a row or a
+// base address is not a multiple of 16 bytes (odd page sizes, misaligned
+// views).  The pool's pages (E % 128 == 0 elements) never take it.
 //
-// Replaces the Pallas TPU kernels page_gather / page_gather_runs
-// (src/repro/kernels/page_gather/kernel.py) and cow_scatter /
-// cow_scatter_runs (src/repro/kernels/cow_scatter/kernel.py).
+// Replaces, on that route, the Pallas TPU kernels page_gather /
+// page_gather_runs (src/repro/kernels/page_gather/kernel.py) and
+// cow_scatter / cow_scatter_runs (src/repro/kernels/cow_scatter/kernel.py).
 //
 // What bounds it: bytes.  Each copied page is read once and written once,
 // 2 * n * E * itemsize bytes over the card's 3.35 TB/s; there is no
-// arithmetic.  The design keeps every memory transaction wide and
-// coalesced and leaves no block idle:
+// arithmetic.  Its index tables are in device memory (the caller uploads
+// them).  The design keeps every memory transaction wide and coalesced
+// and leaves no block idle:
 //   * all four entry points run one kernel, copy_rows: a page is a row of
 //     `row_units` units of U bytes, U the widest of 16/8/4/2/1 bytes that
-//     divides the row, the limit and every base address, so fp32 and bf16
-//     pages move as 16-byte vectors;
+//     divides the row, the limit and every base address;
 //   * blockIdx.y walks rows, blockIdx.x and the threads walk the units of
 //     a row, so neighbouring threads touch neighbouring addresses;
 //   * per-id forms read the row's frame from `map`; run forms find the

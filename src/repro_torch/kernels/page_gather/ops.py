@@ -39,10 +39,21 @@ def kernel_ids(page_ids, num_frames: int, device):
     return ids.astype(np.int32)
 
 
+# Up to this many runs, run_table checks them as Python ints: numpy's
+# reductions cost more than the loop (the replay's tables hold 1-2 runs).
+SMALL_RUNS = 64
+
+
 def run_table(starts, lens, num_frames: int):
     """Filter zero-length runs and range-check: host (starts, lens) int64."""
     starts = np.asarray(starts, np.int64).reshape(-1)
     lens = np.asarray(lens, np.int64).reshape(-1)
+    if starts.size == lens.size <= SMALL_RUNS:
+        s, n = starts.tolist(), lens.tolist()
+        if min(n, default=1) > 0:      # nothing to filter
+            if any(a < 0 or a + b > num_frames for a, b in zip(s, n)):
+                raise IndexError(f"runs out of range [0, {num_frames})")
+            return starts, lens
     keep = lens > 0
     if not keep.all():
         starts, lens = starts[keep], lens[keep]

@@ -1,9 +1,10 @@
-"""The byte plan of the bulk-copy kernel (``csrc/bulk_copy.cu``) for a
-run-table gather, ``kernels/page_gather/plan.py:run_spans``: executed with
-numpy byte slices on the CPU, it must give the reference's
-``page_gather_runs`` (Pallas, interpret mode) byte for byte, trimmed at the
-destination limit.  The kernel itself runs only on the card
-(``chip_smoke.py``)."""
+"""The byte plans of the bulk-copy kernels (``csrc/bulk_copy.cu``) for a
+run-table gather and a run-table scatter, ``kernels/page_gather/plan.py:
+run_spans`` and ``scatter_spans``: executed with numpy byte slices on the
+CPU, they must give the reference's ``page_gather_runs`` and
+``cow_scatter_runs`` (Pallas, interpret mode) byte for byte, trimmed at the
+destination limit; and the routes the wrappers pick on the host.  The
+kernels themselves run only on the card (``chip_smoke.py``)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -11,11 +12,15 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels.cow_scatter import ops as jcs_ops  # noqa: E402
 from repro.kernels.page_gather import ops as jpg_ops  # noqa: E402
 
 from repro_torch.kernels import bulk_copy  # noqa: E402
+from repro_torch.kernels.page_gather import ops as pg_ops  # noqa: E402
 from repro_torch.kernels.page_gather.ops import kernel_ids  # noqa: E402
-from repro_torch.kernels.page_gather.plan import run_spans  # noqa: E402
+from repro_torch.kernels.page_gather.plan import (run_spans,  # noqa: E402
+                                                  scatter_spans)
+from repro_torch.kernels.page_gather.ref import expand_runs  # noqa: E402
 
 F, E = 64, 128         # rows of 512 (fp32) / 256 (bf16) bytes
 
@@ -31,12 +36,15 @@ TRIM = {"none": lambda row: 0, "inside-last-page": lambda row: row - 4,
         "past-last-page": lambda row: row + 6}
 
 
-def _reference_bytes(frames, starts, lens):
-    want = jpg_ops.page_gather_runs(jnp.asarray(frames), starts, lens,
-                                    backend="interpret")
-    a = np.asarray(want)
+def _bytes(a):
+    a = np.asarray(a)
     return (a.view(np.uint16) if a.dtype.name == "bfloat16" else a) \
         .reshape(-1).view(np.uint8)
+
+
+def _reference_bytes(frames, starts, lens):
+    return _bytes(jpg_ops.page_gather_runs(jnp.asarray(frames), starts, lens,
+                                           backend="interpret"))
 
 
 @pytest.mark.parametrize("trim", sorted(TRIM))
@@ -84,6 +92,86 @@ def test_spans_aligned_follows_the_bulk_rule(row, trim, base, want):
     assert bulk_copy.spans_aligned(table, 0x10000 + base, 0x20000) is want
 
 
+def _normal(rng, shape, dtype):
+    return jnp.asarray(rng.standard_normal(shape).astype(np.float32)) \
+        .astype(dtype)
+
+
+@pytest.mark.parametrize("trim", sorted(TRIM))
+@pytest.mark.parametrize("runs", sorted(RUNS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scatter_spans_match_reference_scatter(dtype, runs, trim):
+    """The run-table scatter's byte plan, run with numpy byte slices on a
+    copy of the frames, against the reference's ``cow_scatter_runs``; the
+    destination ends where the last frame written ends, less ``trim``."""
+    starts, lens = (np.array(x, np.int64) for x in RUNS[runs])
+    rng = np.random.default_rng(2 * len(runs) + len(trim))
+    frames = _normal(rng, (F, E), dtype)
+    pages = _normal(rng, (int(lens.sum()), E), dtype)
+    row = E * jnp.dtype(dtype).itemsize
+    limit = int((starts + lens)[lens > 0].max()) * row - TRIM[trim](row)
+
+    fb, pb = _bytes(frames).copy(), _bytes(pages)    # frames are donated
+    want = _bytes(jcs_ops.cow_scatter_runs(frames, starts, lens, pages,
+                                           backend="interpret"))
+    src, dst, nbytes = scatter_spans(starts, lens, row, limit)
+    out = fb.copy()
+    for s, d, n in zip(src, dst, nbytes):
+        out[d:d + n] = pb[s:s + n]
+    np.testing.assert_array_equal(out[:limit], want[:limit])
+    np.testing.assert_array_equal(out[limit:], fb[limit:])
+    untouched = np.setdiff1d(np.arange(F), expand_runs(starts, lens))
+    np.testing.assert_array_equal(out.reshape(F, row)[untouched],
+                                  fb.reshape(F, row)[untouched])
+    # the spans tile the payload in run order (a trimmed destination only
+    # shortens or drops spans) and start on frame rows
+    assert (nbytes > 0).all() and not (dst % row).any()
+    assert not (src % row).any() and (src[1:] >= src[:-1] + nbytes[:-1]).all()
+    if trim == "none":
+        np.testing.assert_array_equal(src, np.cumsum(nbytes) - nbytes)
+        assert int(nbytes.sum()) == pb.size
+    table = bulk_copy.span_table(src, dst, nbytes)
+    assert table.dtype == np.int64 and table.flags.c_contiguous
+
+
+@pytest.mark.parametrize("row, starts, lens, cut, base, aligned, route", [
+    (512, [0, 20, 30, 50], [18, 1, 15, 2], 0, 0, True, "bulk-value"),
+    # the last span ends off 16: still bulk, but the route rule, which
+    # sees only the destination's end, leaves it to copy_rows
+    (512, [0, 20, 30, 50], [18, 1, 15, 2], 4, 0, True, None),
+    # a span cut off 16 with another after it: not bulk
+    (512, [60, 2], [1, 1], 4, 0, False, None),
+    (2002, [0, 20, 30, 50], [18, 1, 15, 2], 0, 0, False, None),   # odd rows
+    (512, [0, 20, 30, 50], [18, 1, 15, 2], 0, 8, False, None),    # a view
+])
+def test_spans_aligned_takes_the_scatter_table(row, starts, lens, cut, base,
+                                               aligned, route):
+    """``spans_aligned`` (the kernel's alignment rule) on the scatter's
+    table, beside ``runs_route``, the rule the wrapper applies: it takes a
+    bulk route only where the table is aligned."""
+    starts, lens = np.array(starts, np.int64), np.array(lens, np.int64)
+    limit = int((starts + lens).max()) * row - cut
+    table = bulk_copy.span_table(*scatter_spans(starts, lens, row, limit))
+    ptrs = (0x10000 + base, 0x20000)
+    assert bulk_copy.spans_aligned(table, *ptrs) is aligned
+    assert bulk_copy.runs_route(len(starts), row, limit, 100, *ptrs) == route
+
+
+@pytest.mark.parametrize("n, row, limit, base, want", [
+    (1, 4096, 4096 * 4096, 0, "bulk-value"),     # the replay's runs
+    (100, 512, 512 * 300, 0, "bulk-value"),      # exactly the capacity
+    (101, 512, 512 * 300, 0, "bulk-device"),     # one past it: uploaded
+    (3, 4004, 4004 * 256, 0, None),              # odd fp32 rows of 1,001
+    (3, 512, 512 * 64, 4, None),                 # a misaligned payload
+    (101, 512, 512 * 300 - 4, 0, None),          # a partial last frame
+])
+def test_runs_route_follows_the_bulk_rule(n, row, limit, base, want):
+    """The run-table scatter's route, decided on the host before anything
+    is uploaded, with a by-value capacity of 100 runs."""
+    assert bulk_copy.runs_route(n, row, limit, 100, 0x10000, 0x20000 + base) \
+        == want
+
+
 def test_kernel_ids_stay_on_their_side():
     """Host ids stay a range-checked int32 numpy array (they travel in the
     launch); ids already in a tensor are not read back."""
@@ -94,6 +182,32 @@ def test_kernel_ids_stay_on_their_side():
         kernel_ids([4], 4, torch.device("cpu"))
     t = kernel_ids(torch.tensor([[7, 9]]), 4, torch.device("cpu"))
     assert t.dtype == torch.int32 and t.tolist() == [7, 9]
+
+
+def _run_table_result(starts, lens):
+    try:
+        s, n = pg_ops.run_table(starts, lens, F)
+    except Exception as e:                  # noqa: BLE001
+        return type(e)
+    assert s.dtype == n.dtype == np.int64 and s.ndim == n.ndim == 1
+    return s.tolist(), n.tolist()
+
+
+@pytest.mark.parametrize("starts, lens", [
+    *RUNS.values(),
+    ([F - 4], [4]), ([F - 4], [5]), ([-1], [2]), ([3, 70], [2, -1]),
+    ([[1, 9]], [[2, 3]]), ([1, 2], [3]), ([], []),
+    (list(range(65)), [1] * 65),
+    (list(range(65)), [1] * 64 + [0]),
+], ids=[*RUNS, "ends-at-limit", "past-limit", "negative-start",
+        "negative-len-filtered", "2-d", "sizes-differ", "empty",
+        "65-runs-past-limit", "65-runs-zero-length"])
+def test_run_table_checks_few_runs_as_numpy_does(monkeypatch, starts, lens):
+    """run_table's path for a few runs (Python ints) gives what its numpy
+    path gives: the same tables, or the same exception."""
+    small = _run_table_result(starts, lens)
+    monkeypatch.setattr(pg_ops, "SMALL_RUNS", -1)
+    assert small == _run_table_result(starts, lens)
 
 
 @pytest.mark.parametrize("n, on_device, row, base, want", [
