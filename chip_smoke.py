@@ -16,7 +16,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    kernel with its table in the launch or in device memory, or
    ``copy_rows``): index tables of exactly the by-value capacity and one
    more, ids already on the card, odd row sizes, a misaligned payload or
-   output, ``scatter_patch`` onto a partial last page, and the replay
+   output, ``scatter_patch`` onto a partial last page, a run-table gather
+   into an output that ends inside its second run, and the replay
    phase's 4 KiB fp32 pages (one page, a 16-page run, 64 pages over two
    VMAs, each table off a 16 KB boundary); each attention case
    its route (``tma``, or ``loads`` for rows off 16 bytes) and the number
@@ -25,9 +26,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    CUDA events (the kernel from host ids through its wrapper, the library
    call with ids already on the card), the device time alone (CUDA-graph
    replay, through the wrapper wherever the call uploads nothing) and the
-   host time of one call; split one page's ``cow_scatter`` call and a
-   16-page run's ``cow_scatter_runs`` call into their host stages, and
-   one long sequence's attention into the device time of its two kernels;
+   host time of one call; split one page's ``cow_scatter`` call, a
+   16-page run's ``cow_scatter_runs`` call, and the replay's
+   ``page_gather`` of one page and ``page_gather_runs`` of a 16-page run
+   into their host stages (the gathers' lines beside the stages of the
+   path they replaced), time the four copy wrappers and the library
+   calls from the host at the replay's shapes in turns, and split one
+   long sequence's attention into the device time of its two kernels;
 4. run the port's serve path (``repro_torch.launch.serve.main``) for
    gemma3-1b at full width: 3 nodes, a seed packed on node0, two children
    forked over the modelled RDMA network, 4 requests and the
@@ -250,6 +255,10 @@ TP_TOL = 1e-4
 FIG20 = dict(page_elems=1024, state_pages=16, touch=0.05, exec_s=0.030,
              coldstart_s=0.167, hold_s=60.0, budget=4, ttl=60.0, scale=50,
              nodes=64, seed=20260809)
+# the replay's copies (replay_cases): one page out of a 16-page VMA, a
+# 16-page run and 64 pages over 2 VMAs, as (label, starts, lens)
+REPLAY_SHAPES = (("one-page-of-16", [37], [1]), ("16-page-run", [33], [16]),
+                 ("64-pages-2-vmas", [101, 170], [32, 32]))
 # Figure 22's targeted crash (benchmarks/fig22_faults.py), copied: the spike
 # at x8 over 32 nodes of 8 links, 64 pages over 2 VMAs paged in across a
 # 0.5 s execution, 2 replicas, re-routing past 0.05 s of backlog, and the
@@ -311,6 +320,24 @@ def device_ms(torch, fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def stage_us(torch, stages: dict, calls: int = 2000,
+             rounds: int = 10) -> dict:
+    """Host microseconds of each of ``stages`` (name -> fn): the median of
+    ``calls`` calls each, made with the card idle, in ``rounds`` rounds
+    that take the stages in turn, so that a drift of the host's speed
+    reaches every stage alike."""
+    times = {k: [] for k in stages}
+    for _ in range(rounds):
+        for k, fn in stages.items():
+            for _ in range(calls // rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times[k].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return {k: statistics.median(v) * 1e6 for k, v in times.items()}
 
 
 def host_us(torch, fn, reps: int = 50) -> float:
@@ -388,6 +415,11 @@ def copy_cases(limits):
              3 * cap_spans + 6, 4096, runs(cap_spans + 1), "bulk-device"),
         case("page_gather_runs", "odd-row", "bfloat16", 256, 1001,
              ([0, 50, 120], [40, 3, 100]), "copy_rows"),
+        # into an output of 6.5 rows: the span table built in the launch
+        # trims the second run's span and drops the two after it
+        case("page_gather_runs", "trimmed-out", "float32", 4096,
+             FIG20["page_elems"], ([10, 40, 100, 200], [5, 3, 4, 2]),
+             "bulk-value", out_rows=6.5),
         case("cow_scatter", "single-page", "float32", 64, E, np.array([9]),
              "bulk-value"),
         case("cow_scatter", "kv-column", "float32", 1024, 4096,
@@ -428,17 +460,43 @@ def replay_cases(case):
     pool of ``build_cluster``'s 4,096 frames, with the replay's id shapes: one page out of a
     16-page VMA, a 16-page run and 64 pages over 2 VMAs.  Every table
     starts off a 16 KB boundary."""
-    shapes = (("one-page-of-16", [37], [1]), ("16-page-run", [33], [16]),
-              ("64-pages-2-vmas", [101, 170], [32, 32]))
     out = []
     for name in COPY_KERNELS:
-        for label, starts, lens in shapes:
+        for label, starts, lens in REPLAY_SHAPES:
             spec = ((starts, lens) if name.endswith("_runs") else
                     np.concatenate([np.arange(s, s + n)
                                     for s, n in zip(starts, lens)]))
             out.append(case(name, f"replay-{label}", "float32",
                             4096, FIG20["page_elems"],
                             spec, "bulk-value"))
+    return out
+
+
+def replay_host_us(torch):
+    """Host microseconds of one call of each copy wrapper and of the
+    library calls at the replay's shapes (as :func:`replay_cases`), taken
+    in turns by :func:`stage_us`: shape -> call -> us."""
+    from repro_torch.kernels.cow_scatter import ops as cs
+    from repro_torch.kernels.page_gather import ops as pg
+    E, F = FIG20["page_elems"], 4096
+    dev = torch.device("cuda", torch.cuda.current_device())
+    frames = torch.zeros(F, E, device=dev)
+    out = {}
+    for label, starts, lens in REPLAY_SHAPES:
+        st, ln = np.array(starts, np.int64), np.array(lens, np.int64)
+        ids = np.concatenate([np.arange(a, a + b, dtype=np.int32)
+                              for a, b in zip(starts, lens)])
+        ids_dev = torch.from_numpy(ids.astype(np.int64)).to(dev)
+        pages = torch.ones(ids.size, E, device=dev)
+        out[label] = stage_us(torch, {
+            "page_gather": lambda: pg.page_gather(frames, ids),
+            "page_gather_runs": lambda: pg.page_gather_runs(frames, st, ln),
+            "cow_scatter": lambda: cs.cow_scatter(frames, ids, pages),
+            "cow_scatter_runs": lambda: cs.cow_scatter_runs(frames, st, ln,
+                                                            pages),
+            "index_select": lambda: frames.index_select(0, ids_dev),
+            "index_copy_": lambda: frames.index_copy_(0, ids_dev, pages),
+        })
     return out
 
 
@@ -455,7 +513,8 @@ def run_copy_case(torch, case):
     from repro_torch.kernels.cow_scatter import ops as cs
     from repro_torch.kernels.page_gather import kernel as pgk, ops as pg
     from repro_torch.kernels.page_gather.ref import (expand_runs,
-                                                     page_gather_ref)
+                                                     page_gather_ref,
+                                                     page_gather_runs_ref)
     from repro_torch.memory.pool import frame_runs
     name, label, F, E, spec = (case[k] for k in
                                ("name", "label", "F", "E", "spec"))
@@ -479,6 +538,17 @@ def run_copy_case(torch, case):
             def call(backend):
                 return pg.page_gather_runs(frames, *frame_runs(ids),
                                            backend=backend)
+        elif runs and case.get("out_rows"):
+            st, ln = (np.asarray(x, np.int64) for x in spec)
+            size = int(case["out_rows"] * E)
+
+            def call(backend):
+                if backend == "torch":
+                    return page_gather_runs_ref(frames, st, ln) \
+                        .reshape(-1)[:size]
+                return pgk.page_gather_runs(
+                    frames, st, ln, int(ln.sum()),
+                    out=torch.empty(size, dtype=dtype, device=dev))
         elif runs:
             def call(backend):
                 return pg.page_gather_runs(frames, *spec, backend=backend)
@@ -500,8 +570,10 @@ def run_copy_case(torch, case):
         torch.cuda.synchronize()
         ok = torch.equal(got[0], want)
 
+        lib_ids = ids_dev[:-(-int(case.get("out_rows", n) * E) // E)]
+
         def library():
-            return frames.index_select(0, ids_dev)
+            return frames.index_select(0, lib_ids)
     else:
         fk, fp = frames.clone(), frames.clone()
         if runs:
@@ -540,7 +612,7 @@ def run_copy_case(torch, case):
 
         def plain():
             return call("torch", plain_target)
-    nbytes = 2 * n * E * frames.element_size()
+    nbytes = 2 * int(case.get("out_rows", n) * E) * frames.element_size()
     # a graph keeps every call's output: 3 calls past 4 GiB moved
     reps = 3 if nbytes > (4 << 30) else 10 if nbytes > (256 << 20) else 20
     # device-only times, through the wrapper where the call uploads nothing
@@ -576,9 +648,10 @@ def run_copy_case(torch, case):
 
 def host_stages(torch):
     """Host microseconds of each stage of a one-page fp32 ``cow_scatter``
-    through its wrapper, beside the whole call and ``index_copy_``."""
-    import ctypes
-    from repro_torch.kernels import build, dispatch
+    through its wrapper, beside the whole call and ``index_copy_``.
+    ``ids_pointer`` (``ids.ctypes.data``) is how the ids were passed before
+    they travelled as ``bytes`` (``tables_to_bytes``)."""
+    from repro_torch.kernels import build, bulk_copy, dispatch
     from repro_torch.kernels.cow_scatter import kernel, ops as cs
     from repro_torch.kernels.page_gather.ops import kernel_ids
     E = 32768
@@ -588,9 +661,7 @@ def host_stages(torch):
     ids = np.array([9], np.int32)
     ids_dev = torch.from_numpy(ids.astype(np.int64)).to(dev)
     isz = frames.element_size()
-    fn = build.function("bulk_copy", "bulk_scatter_ids",
-                        (ctypes.c_void_p,) * 4 + (ctypes.c_int64,) * 3
-                        + (ctypes.c_void_p,))
+    fn = bulk_copy.ids_entry("bulk_scatter_ids")
     fp, pp = frames.data_ptr(), pages.data_ptr()
     stream = build.stream(dev)
     stages = {
@@ -601,14 +672,15 @@ def host_stages(torch):
         "check_args": lambda: kernel._check_args(frames, pages, E),
         "stream": lambda: build.stream(dev),
         "ids_pointer": lambda: ids.ctypes.data,
-        "c_call_and_launch": lambda: fn(fp, pp, ids.ctypes.data, None, 1,
+        "tables_to_bytes": lambda: ids.tobytes(),
+        "c_call_and_launch": lambda: fn(fp, pp, ids.tobytes(), None, 1,
                                         E * isz, 64 * E * isz, stream),
         "count_launch": lambda: dispatch.count_launch(
             "cow_scatter", pages=1, route="bulk-value"),
         "whole_wrapper": lambda: cs.cow_scatter(frames, ids, pages),
         "index_copy_": lambda: frames.index_copy_(0, ids_dev, pages),
     }
-    return {k: host_us(torch, f, 2000) for k, f in stages.items()}
+    return stage_us(torch, stages)
 
 
 def host_stages_runs(torch):
@@ -631,7 +703,7 @@ def host_stages_runs(torch):
     ids_dev = torch.from_numpy(ids.astype(np.int64)).to(dev)
     isz = frames.element_size()
     row, limit = E * isz, frames.numel() * isz
-    fn = bulk_copy.scatter_runs_entry()
+    fn = bulk_copy.runs_entry("bulk_scatter_runs")
     fp, pp = frames.data_ptr(), pages.data_ptr()
     stream = build.stream(dev)
     cap = bulk_copy.limits()["spans"]
@@ -659,7 +731,155 @@ def host_stages_runs(torch):
                                                             pages),
         "index_copy_": lambda: frames.index_copy_(0, ids_dev, pages),
     }
-    return {k: host_us(torch, f, 2000) for k, f in stages.items()}
+    return stage_us(torch, stages)
+
+
+def _pointer_entry(lib: str, entry: str, argtypes):
+    """A second ctypes handle on a C entry, with its own argument types
+    (``build.function``'s handle keeps the wrapper's): the gathers' old
+    path passed its host tables by ``ndarray.ctypes.data``."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = build.library(lib)[entry]
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    return fn
+
+
+def _path_sums(r, common, old, new):
+    """The sums of the old and the new path's stages, beside the stages."""
+    r["old_path"] = sum(r[k] for k in common + old)
+    r["new_path"] = sum(r[k] for k in common + new)
+    return r
+
+
+def host_stages_gather(torch):
+    """Host microseconds of each stage of ``page_gather`` through its
+    wrapper at the replay's commonest gather, one fp32 page of 1,024
+    elements from a pool of 4,096 frames, beside the whole call and
+    ``index_select``.  Reference stages of the path before this one:
+    ``numpy_kernel_ids`` (the range check as one numpy reduction),
+    ``old_alloc_out`` (``torch.empty`` with the dtype and device as
+    keywords), ``ids_pointer`` (``ids.ctypes.data``) and
+    ``old_c_call_and_launch`` (the C call with the ids by pointer).  ``old_path`` and ``new_path``
+    sum each path's stages."""
+    import ctypes
+    from repro_torch.kernels import build, bulk_copy, dispatch
+    from repro_torch.kernels.page_gather import kernel, ops as pg
+    E, F = FIG20["page_elems"], 4096
+    dev = torch.device("cuda", torch.cuda.current_device())
+    frames = torch.zeros(F, E, device=dev)
+    out = torch.empty((1, E), device=dev)
+    ids = np.array([37], np.int32)
+    ids_dev = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    row = limit = E * frames.element_size()
+    fn = bulk_copy.ids_entry("bulk_gather_ids")
+    P, L = ctypes.c_void_p, ctypes.c_int64
+    old_fn = _pointer_entry("bulk_copy", "bulk_gather_ids",
+                            (P, P, P, P, L, L, L, P))
+    op, fp = out.data_ptr(), frames.data_ptr()
+    stream = build.stream(dev)
+    cap = bulk_copy.limits()["ids"]
+
+    def numpy_kernel_ids():
+        if ids.size and ids.view(np.uint32).max() >= F:
+            raise IndexError("page ids out of range")
+        return ids
+    stages = {
+        "kernel_ids": lambda: pg.kernel_ids(ids, F, dev),
+        "resolve_backend": lambda: dispatch.resolve_backend(
+            "auto", kernel_name="page_gather", device=dev),
+        "alloc_out": lambda: frames.new_empty((1, E)),
+        "check_args": lambda: kernel._check_args(frames, out),
+        "ids_route": lambda: bulk_copy.ids_route(ids, row, cap, op, fp),
+        "stream": lambda: build.stream(dev),
+        "tables_to_bytes": lambda: ids.tobytes(),
+        "c_call_and_launch": lambda: fn(op, fp, ids.tobytes(), None, 1,
+                                        row, limit, stream),
+        "count_launch": lambda: dispatch.count_launch(
+            "page_gather", pages=1, route="bulk-value"),
+        "numpy_kernel_ids": numpy_kernel_ids,
+        "old_alloc_out": lambda: torch.empty((1, E), dtype=frames.dtype,
+                                             device=frames.device),
+        "ids_pointer": lambda: ids.ctypes.data,
+        "old_c_call_and_launch": lambda: old_fn(op, fp, ids.ctypes.data,
+                                                None, 1, row, limit, stream),
+        "whole_wrapper": lambda: pg.page_gather(frames, ids),
+        "index_select": lambda: frames.index_select(0, ids_dev),
+    }
+    r = stage_us(torch, stages)
+    return _path_sums(r, ["resolve_backend", "check_args", "ids_route",
+                          "stream", "count_launch"],
+                      ["numpy_kernel_ids", "old_alloc_out",
+                       "old_c_call_and_launch"],
+                      ["kernel_ids", "alloc_out", "c_call_and_launch"])
+
+
+def host_stages_gather_runs(torch):
+    """Host microseconds of each stage of ``page_gather_runs`` through its
+    wrapper at the replay's 16-page run (fp32 pages of 1,024 elements, a
+    pool of 4,096 frames), beside the whole call, ``cow_scatter_runs`` of
+    the same run and ``index_select``.  Reference stages of the path
+    before this one: ``pages_sum`` (the output's rows as a numpy sum),
+    ``old_alloc_out`` (as in :func:`host_stages_gather`), ``numpy_plan`` (``span_table(*run_spans(...))``), ``table_pointer``
+    (``table.ctypes.data``) and ``old_c_call_and_launch`` (the C call of
+    ``bulk_copy_spans`` with that pointer).  ``old_path`` and ``new_path``
+    sum each path's stages."""
+    import ctypes
+    from repro_torch.kernels import build, bulk_copy, dispatch
+    from repro_torch.kernels.cow_scatter import ops as cs
+    from repro_torch.kernels.page_gather import kernel, ops as pg
+    from repro_torch.kernels.page_gather.plan import run_spans
+    E, F = FIG20["page_elems"], 4096
+    dev = torch.device("cuda", torch.cuda.current_device())
+    frames = torch.zeros(F, E, device=dev)
+    out = torch.empty((16, E), device=dev)
+    pages = torch.ones(16, E, device=dev)
+    starts, lens = np.array([33], np.int64), np.array([16], np.int64)
+    ids_dev = torch.arange(33, 49, device=dev)
+    row = E * frames.element_size()
+    limit = 16 * row
+    fn = bulk_copy.runs_entry("bulk_gather_runs")
+    P = ctypes.c_void_p
+    old_fn = _pointer_entry("bulk_copy", "bulk_copy_spans",
+                            (P, P, P, P, ctypes.c_int, P))
+    op, fp = out.data_ptr(), frames.data_ptr()
+    stream = build.stream(dev)
+    cap = bulk_copy.limits()["spans"]
+    table = bulk_copy.span_table(*run_spans(starts, lens, row, limit))
+    stages = {
+        "run_table": lambda: pg.run_table(starts, lens, F),
+        "resolve_backend": lambda: dispatch.resolve_backend(
+            "auto", kernel_name="page_gather", device=dev),
+        "alloc_out": lambda: frames.new_empty((16, E)),
+        "check_args": lambda: kernel._check_args(frames, out),
+        "runs_route": lambda: bulk_copy.runs_route(1, row, limit, cap, op,
+                                                   fp),
+        "stream": lambda: build.stream(dev),
+        "tables_to_bytes": lambda: (starts.tobytes(), lens.tobytes()),
+        "c_call_and_launch": lambda: fn(op, fp, starts.tobytes(),
+                                        lens.tobytes(), 1, row, limit,
+                                        stream),
+        "count_launch": lambda: dispatch.count_launch(
+            "page_gather_runs", pages=16, route="bulk-value"),
+        "pages_sum": lambda: int(lens.sum()),
+        "old_alloc_out": lambda: torch.empty((16, E), dtype=frames.dtype,
+                                             device=frames.device),
+        "numpy_plan": lambda: bulk_copy.span_table(
+            *run_spans(starts, lens, row, limit)),
+        "table_pointer": lambda: table.ctypes.data,
+        "old_c_call_and_launch": lambda: old_fn(op, fp, table.ctypes.data,
+                                                None, 1, stream),
+        "whole_wrapper": lambda: pg.page_gather_runs(frames, starts, lens),
+        "cow_scatter_runs_whole_wrapper": lambda: cs.cow_scatter_runs(
+            frames, starts, lens, pages),
+        "index_select": lambda: frames.index_select(0, ids_dev),
+    }
+    r = stage_us(torch, stages)
+    return _path_sums(r, ["run_table", "resolve_backend", "check_args",
+                          "stream", "count_launch"],
+                      ["pages_sum", "old_alloc_out", "numpy_plan",
+                       "old_c_call_and_launch"],
+                      ["alloc_out", "runs_route", "c_call_and_launch"])
 
 
 def patch_cases():
@@ -2236,6 +2456,12 @@ def main() -> int:
           + json.dumps(host_stages(torch)))
     print("[smoke] cow_scatter_runs host stages, the replay's 16-page run "
           "(us): " + json.dumps(host_stages_runs(torch)))
+    print("[smoke] page_gather host stages, the replay's one page of 16 "
+          "(us): " + json.dumps(host_stages_gather(torch)))
+    print("[smoke] page_gather_runs host stages, the replay's 16-page run "
+          "(us): " + json.dumps(host_stages_gather_runs(torch)))
+    print("[smoke] replay shapes, host us of one call, wrappers and library "
+          "calls in turns: " + json.dumps(replay_host_us(torch)))
     for case in attention_cases():
         for dtype in (torch.float32, torch.bfloat16):
             r = run_attention_case(torch, case, dtype)

@@ -56,13 +56,13 @@ def cow_scatter_runs(frames: torch.Tensor, starts, lens, pages, *,
     """Run-table COW commit: each (start, len) pair is one contiguous
     destination extent; pages is the run-major payload (sum(lens), E).
     Runs must not overlap (fresh frames from the allocator)."""
-    starts, lens = run_table(starts, lens, frames.shape[0])
-    if starts.size == 0:
+    starts, lens, n = run_table(starts, lens, frames.shape[0])
+    if n == 0:
         return frames
     impl = dispatch.resolve_backend(backend, kernel_name="cow_scatter",
                                     device=frames.device)
     E = frames.shape[1]
-    payload = _payload(pages, int(lens.sum()), frames, frames.dtype, E)
+    payload = _payload(pages, n, frames, frames.dtype, E)
     if impl == dispatch.IMPL_TORCH:
         ids = torch.from_numpy(expand_runs(starts, lens)).to(frames.device)
         return cow_scatter_ref(frames, ids, payload)

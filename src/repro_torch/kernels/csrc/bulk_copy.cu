@@ -17,9 +17,11 @@
 //     (kernel parameters may take 32,764 bytes with CUDA >= 12.1, 4,096
 //     before), so a call needs no allocation, no host-to-device copy and
 //     no synchronisation.  Three size classes keep the parameter block of
-//     a small table small.  The run-table scatter's span table is built
-//     here from the host runs (bulk_scatter_runs), so its caller plans
-//     nothing.  Larger tables, and ids the caller already holds on the
+//     a small table small.  The span tables of both run-table copies are
+//     built here from the host runs (bulk_gather_runs, bulk_scatter_runs),
+//     so their callers plan nothing; host ids are read from the caller's
+//     bytes.  Larger tables, whose plans the caller builds in numpy
+//     (page_gather/plan.py), and ids the caller already holds on the
 //     device, are read from device memory by the same kernel;
 //   * the body moves bytes with the Tensor Memory Accelerator's 1-D bulk
 //     copies.  A persistent grid of kBlocksPerSm blocks per SM; in each
@@ -348,14 +350,16 @@ bool aligned(const void* a, const void* b) {
   return (((uintptr_t)a | (uintptr_t)b) & 15) == 0;
 }
 
-// The run-table scatter's span table, built in the launch from the host
-// runs (plan.py's scatter_spans is the same plan in numpy, for the tables
-// past kSpansMax that are uploaded): run i is the span from payload byte
-// offs[i] * row (offs the exclusive cumsum of lens) to frame byte
-// starts[i] * row, lens[i] * row bytes long.  Zero-length runs are left
-// out; destination bytes at or past `limit` are dropped.  With row and
-// limit multiples of 16, so is every offset and size.
-template <int N>
+// The span table of a run-table copy, built in the launch from the host
+// runs (plan.py's run_spans and scatter_spans are the same plans in numpy,
+// for the tables past kSpansMax that are uploaded).  Run i is one span
+// between frame bytes starts[i] * row and packed bytes offs[i] * row (offs
+// the exclusive cumsum of lens), lens[i] * row bytes long: a gather reads
+// the frames and packs them, a scatter reads the packed payload.
+// Zero-length runs are left out; destination bytes at or past `limit` are
+// dropped (a span that crosses it is trimmed).  With row a multiple of 16,
+// so is every offset and every size but a trimmed one.
+template <int N, bool kGather>
 int runs_by_value(void* dst, const void* src, const int64_t* starts,
                   const int64_t* lens, int n, int64_t row, int64_t limit,
                   cudaStream_t s) {
@@ -366,18 +370,40 @@ int runs_by_value(void* dst, const void* src, const int64_t* starts,
   int64_t off = 0, end = 0;
   for (int i = 0; i < n; ++i) {
     if (starts[i] < 0 || lens[i] < 0) return (int)cudaErrorInvalidValue;
-    const int64_t d = starts[i] * row, o = off;
+    const int64_t f = starts[i] * row, o = off;
+    const int64_t d = kGather ? o : f;
     int64_t nb = lens[i] * row;
     off += nb;
     if (nb > limit - d) nb = limit - d;
     if (nb <= 0) continue;
-    p.tab.src[k] = o;
+    p.tab.src[k] = kGather ? f : o;
     p.tab.dst[k] = d;
     p.tab.end[k] = end += nb;
     ++k;
   }
   p.tab.n = k;
   return launch(p, end, s);
+}
+
+// The entry of a run-table copy: up to kSpansMax host runs, their span
+// table built in the launch (three size classes).
+template <bool kGather>
+int runs_entry(void* dst, const void* src, const int64_t* starts,
+               const int64_t* lens, int n, int64_t row, int64_t limit,
+               void* stream) {
+  if (n <= 0 || row <= 0 || limit <= 0) return 0;
+  if (!aligned(dst, src) || ((row | limit) & 15)) return kNotBulk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= kSmall)
+    return runs_by_value<kSmall, kGather>(dst, src, starts, lens, n, row,
+                                          limit, s);
+  if (n <= kSpansMid)
+    return runs_by_value<kSpansMid, kGather>(dst, src, starts, lens, n, row,
+                                             limit, s);
+  if (n <= kSpansMax)
+    return runs_by_value<kSpansMax, kGather>(dst, src, starts, lens, n, row,
+                                             limit, s);
+  return (int)cudaErrorInvalidValue;   // past spans_max: bulk_copy_spans
 }
 
 // The entry of a row-id plan: host ids of up to kIdsMax travel in the
@@ -467,30 +493,29 @@ int bulk_copy_spans(void* dst, const void* src, const int64_t* spans,
   return launch(p, spans[3 * (int64_t)n - 1], s);
 }
 
-// The run-table scatter, frames[starts[i] + j] <- pages[offs[i] + j] for
+// The run-table gather, out[offs[i] + j] <- frames[starts[i] + j] for
 // j < lens[i] (rows of row_bytes, offs the exclusive cumsum of lens),
-// stopping at frames byte limit_bytes.  starts and lens are host int64
-// tables of n <= spans_max runs; their span table is built here and
-// travels in the launch, so the call allocates nothing, copies nothing to
-// the card and does not synchronise.  Runs must not overlap.  Returns
-// kNotBulk, launching nothing, unless the pointers, the row and the limit
-// are 16-byte multiples.
+// writing out bytes [0, min(sum(lens) * row_bytes, limit_bytes)).  starts
+// and lens are host int64 tables of n <= spans_max runs; their span table
+// is built here and travels in the launch, so the call allocates nothing,
+// copies nothing to the card and does not synchronise.  Returns kNotBulk,
+// launching nothing, unless the pointers, the row and the limit are
+// 16-byte multiples.
+int bulk_gather_runs(void* dst, const void* src, const int64_t* starts,
+                     const int64_t* lens, int n, int64_t row_bytes,
+                     int64_t limit_bytes, void* stream) {
+  return runs_entry<true>(dst, src, starts, lens, n, row_bytes, limit_bytes,
+                          stream);
+}
+
+// The run-table scatter, frames[starts[i] + j] <- pages[offs[i] + j] for
+// j < lens[i], stopping at frames byte limit_bytes.  Tables, routes and
+// alignment as for bulk_gather_runs; runs must not overlap.
 int bulk_scatter_runs(void* dst, const void* src, const int64_t* starts,
                       const int64_t* lens, int n, int64_t row_bytes,
                       int64_t limit_bytes, void* stream) {
-  if (n <= 0 || row_bytes <= 0 || limit_bytes <= 0) return 0;
-  if (!aligned(dst, src) || ((row_bytes | limit_bytes) & 15)) return kNotBulk;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= kSmall)
-    return runs_by_value<kSmall>(dst, src, starts, lens, n, row_bytes,
-                                 limit_bytes, s);
-  if (n <= kSpansMid)
-    return runs_by_value<kSpansMid>(dst, src, starts, lens, n, row_bytes,
-                                    limit_bytes, s);
-  if (n <= kSpansMax)
-    return runs_by_value<kSpansMax>(dst, src, starts, lens, n, row_bytes,
-                                    limit_bytes, s);
-  return (int)cudaErrorInvalidValue;   // past spans_max: bulk_copy_spans
+  return runs_entry<false>(dst, src, starts, lens, n, row_bytes, limit_bytes,
+                           stream);
 }
 
 }  // extern "C"

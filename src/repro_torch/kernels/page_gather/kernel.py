@@ -10,10 +10,12 @@ up to the by-value capacity, uploads more, and reads ids already on the
 device where they are (cutting a long id list into runs, so that an
 embedding's 9,216 consecutive pages travel as one span, cost more host
 time on an H100 than the upload it saves; ``PERF.md``).
-``page_gather_runs`` copies the byte plan of ``plan.run_spans``.  Where
-rows or addresses are not 16-byte multiples both take ``copy_rows``
-(``csrc/paging.cu``).  Each launch is counted with its route.  The launch
-goes on PyTorch's current stream and does not synchronise.
+``page_gather_runs`` moves one span a run, its span table built from the
+host runs inside the launch up to the by-value capacity (past it,
+``plan.run_spans``' table is uploaded).  Where rows or addresses are not
+16-byte multiples both take ``copy_rows`` (``csrc/paging.cu``).  Each
+launch is counted with its route.  The launch goes on PyTorch's current
+stream and does not synchronise.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build, bulk_copy, dispatch
-from repro_torch.kernels.page_gather.plan import run_offsets, run_spans
+from repro_torch.kernels.page_gather.plan import run_offsets
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -50,15 +52,16 @@ def page_gather(frames: torch.Tensor, ids, out: torch.Tensor = None
     (n, E) tensor), rows past ``out``'s end dropped."""
     n, E = len(ids), frames.shape[1]
     if out is None:
-        out = torch.empty((n, E), dtype=frames.dtype, device=frames.device)
+        out = frames.new_empty((n, E))
     if isinstance(ids, torch.Tensor):
         _check_args(frames, out, ids)
     else:
         _check_args(frames, out)
-    if n == 0 or out.numel() == 0:
+    size = out.numel()
+    if n == 0 or size == 0:
         return out
     isz = frames.element_size()
-    row, limit = E * isz, out.numel() * isz
+    row, limit = E * isz, size * isz
     route = bulk_copy.gather_ids(out, frames, ids, row, limit)
     if route is None:
         if isinstance(ids, np.ndarray):
@@ -75,20 +78,22 @@ def page_gather(frames: torch.Tensor, ids, out: torch.Tensor = None
 
 
 def page_gather_runs(frames: torch.Tensor, starts: np.ndarray,
-                     lens: np.ndarray, out: torch.Tensor = None
+                     lens: np.ndarray, n_out: int, out: torch.Tensor = None
                      ) -> torch.Tensor:
-    """Run-table gather: host (starts, lens) int64 with ``lens >= 1``,
-    range-checked -> ``out`` (by default a new (sum(lens), E) tensor)."""
+    """Run-table gather: host (starts, lens) 1-D int64 arrays with ``lens
+    >= 1``, range-checked, and ``n_out = sum(lens)`` -> ``out`` (by default
+    a new (n_out, E) tensor)."""
     E = frames.shape[1]
-    n_out = int(lens.sum())
     if out is None:
-        out = torch.empty((n_out, E), dtype=frames.dtype,
-                          device=frames.device)
+        out = frames.new_empty((n_out, E))
     _check_args(frames, out)
+    if starts.dtype != np.int64 or lens.dtype != np.int64 \
+            or starts.ndim != 1 or starts.shape != lens.shape:
+        raise ValueError("starts and lens must be 1-D int64 arrays of one "
+                         "length")
     isz = frames.element_size()
     row, limit = E * isz, out.numel() * isz
-    route = bulk_copy.copy_spans(out, frames, bulk_copy.span_table(
-        *run_spans(starts, lens, row, limit)))
+    route = bulk_copy.gather_runs(out, frames, starts, lens, row, limit)
     if route is None:
         st, offs = run_offsets(starts, lens, frames.device)
         fn = build.function("paging", "page_gather_runs",

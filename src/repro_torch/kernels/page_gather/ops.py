@@ -16,6 +16,12 @@ from repro_torch.kernels.page_gather.ref import (page_gather_ref,
                                                  page_gather_runs_ref)
 
 
+# Up to this many ids or runs, kernel_ids and run_table check them as
+# Python ints: numpy's reductions cost more than the loop (the replay's
+# tables hold 1-2 ids or runs).
+SMALL_RUNS = 64
+
+
 def kernel_ids(page_ids, num_frames: int, device):
     """Page ids in their one form on the kernel path: a tensor becomes a
     contiguous int32 tensor on ``device`` (not read back, which would
@@ -28,24 +34,24 @@ def kernel_ids(page_ids, num_frames: int, device):
         return page_ids.to(device=device, dtype=torch.int32).reshape(-1) \
             .contiguous()
     ids = np.asarray(page_ids)
-    if ids.dtype == np.int32 and ids.ndim == 1 and ids.flags.c_contiguous:
-        # the pool's own tables: one reduction, negatives wrap past the end
-        if ids.size and ids.view(np.uint32).max() >= num_frames:
-            raise IndexError(f"page ids out of range [0, {num_frames})")
-        return ids
-    ids = np.atleast_1d(np.asarray(ids, np.int64)).ravel()
-    if ids.size and (ids.min() < 0 or ids.max() >= num_frames):
+    own = ids.dtype == np.int32 and ids.ndim == 1 and ids.flags.c_contiguous
+    if not own:
+        ids = np.atleast_1d(np.asarray(ids, np.int64)).ravel()
+    if ids.size <= SMALL_RUNS:
+        i = ids.tolist()
+        bad = i and (min(i) < 0 or max(i) >= num_frames)
+    elif own:          # one reduction: negatives wrap past the end
+        bad = ids.size and ids.view(np.uint32).max() >= num_frames
+    else:
+        bad = ids.size and (ids.min() < 0 or ids.max() >= num_frames)
+    if bad:
         raise IndexError(f"page ids out of range [0, {num_frames})")
-    return ids.astype(np.int32)
-
-
-# Up to this many runs, run_table checks them as Python ints: numpy's
-# reductions cost more than the loop (the replay's tables hold 1-2 runs).
-SMALL_RUNS = 64
+    return ids if own else ids.astype(np.int32)
 
 
 def run_table(starts, lens, num_frames: int):
-    """Filter zero-length runs and range-check: host (starts, lens) int64."""
+    """Filter zero-length runs and range-check: host (starts, lens) int64,
+    and the pages they hold, ``sum(lens)``."""
     starts = np.asarray(starts, np.int64).reshape(-1)
     lens = np.asarray(lens, np.int64).reshape(-1)
     if starts.size == lens.size <= SMALL_RUNS:
@@ -53,14 +59,14 @@ def run_table(starts, lens, num_frames: int):
         if min(n, default=1) > 0:      # nothing to filter
             if any(a < 0 or a + b > num_frames for a, b in zip(s, n)):
                 raise IndexError(f"runs out of range [0, {num_frames})")
-            return starts, lens
+            return starts, lens, sum(n)
     keep = lens > 0
     if not keep.all():
         starts, lens = starts[keep], lens[keep]
     if starts.size and (starts.min() < 0
                         or (starts + lens).max() > num_frames):
         raise IndexError(f"runs out of range [0, {num_frames})")
-    return starts, lens
+    return starts, lens, int(lens.sum())
 
 
 def _check_frames(frames) -> None:
@@ -90,14 +96,14 @@ def page_gather_runs(frames: torch.Tensor, starts, lens, *,
     run-major.  Zero-length runs are filtered here; the kernel requires
     ``lens >= 1``."""
     _check_frames(frames)
-    starts, lens = run_table(starts, lens, frames.shape[0])
-    if starts.size == 0:
+    starts, lens, n_out = run_table(starts, lens, frames.shape[0])
+    if n_out == 0:
         return frames.new_zeros((0, frames.shape[1]))
     impl = dispatch.resolve_backend(backend, kernel_name="page_gather",
                                     device=frames.device)
     if impl == dispatch.IMPL_TORCH:
         return page_gather_runs_ref(frames, starts, lens)
-    return kernel.page_gather_runs(frames, starts, lens)
+    return kernel.page_gather_runs(frames, starts, lens, n_out)
 
 
 def gather_assemble(frames: torch.Tensor, page_ids, shape, *,
@@ -119,7 +125,7 @@ def gather_assemble(frames: torch.Tensor, page_ids, shape, *,
         pages = page_gather_ref(frames, ids)
         out = pages.reshape(-1)[:size].reshape(shape)
     else:
-        out = torch.empty(shape, dtype=frames.dtype, device=frames.device)
+        out = frames.new_empty(shape)
         kernel.page_gather(frames, ids, out=out)
     if out_dtype is not None:
         out = out.to(_dtypes.torch_dtype(out_dtype))

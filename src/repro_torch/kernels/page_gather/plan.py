@@ -3,14 +3,14 @@
 ``run_spans`` and ``scatter_spans`` are the byte plans the bulk-copy
 kernel (``csrc/bulk_copy.cu``) executes for a run-table gather and a
 run-table scatter: a run of contiguous frames is one contiguous span of
-bytes on both sides, so the kernel moves spans, not pages.  A scatter of
-up to the by-value capacity builds the same plan in C from the host runs
-(``bulk_copy.cu:runs_by_value``, a line-for-line mirror of
-``scatter_spans``, checked against the plain scatter only on the card, by
-``chip_smoke.py``); larger ones upload ``scatter_spans``' table.
-``run_offsets`` gives the per-run tables of the row-copy kernel
-(``csrc/paging.cu``), which takes the runs whose rows or addresses are not
-16-byte multiples.
+bytes on both sides, so the kernel moves spans, not pages.  Both copies
+of up to the by-value capacity build the same plans in C from the host
+runs (``bulk_copy.cu:runs_by_value``, a line-for-line mirror of both,
+checked against the plain gather and scatter only on the card, by
+``chip_smoke.py``); larger ones upload these functions' tables, and the
+CPU tests hold them to the reference.  ``run_offsets`` gives the per-run
+tables of the row-copy kernel (``csrc/paging.cu``), which takes the runs
+whose rows or addresses are not 16-byte multiples.
 """
 from __future__ import annotations
 

@@ -186,11 +186,12 @@ def test_kernel_ids_stay_on_their_side():
 
 def _run_table_result(starts, lens):
     try:
-        s, n = pg_ops.run_table(starts, lens, F)
+        s, n, total = pg_ops.run_table(starts, lens, F)
     except Exception as e:                  # noqa: BLE001
         return type(e)
     assert s.dtype == n.dtype == np.int64 and s.ndim == n.ndim == 1
-    return s.tolist(), n.tolist()
+    assert type(total) is int
+    return s.tolist(), n.tolist(), total
 
 
 @pytest.mark.parametrize("starts, lens", [
@@ -254,3 +255,148 @@ def test_pool_passes_its_int32_ids_through_uncopied(monkeypatch):
     for arg, out in seen:
         assert isinstance(arg, np.ndarray) and arg.dtype == np.int32
         assert out is arg
+
+
+@pytest.mark.parametrize("runs", sorted(RUNS))
+def test_run_table_counts_the_pages_of_its_runs(runs):
+    """``run_table``'s page count, which the run-table wrappers take as
+    the output's rows, equals ``lens.sum()``, on both of its paths."""
+    starts, lens = RUNS[runs]
+    total = int(np.sum(lens))
+    assert pg_ops.run_table(starts, lens, F)[2] == total
+    small = pg_ops.SMALL_RUNS
+    try:
+        pg_ops.SMALL_RUNS = -1
+        assert pg_ops.run_table(starts, lens, F)[2] == total
+    finally:
+        pg_ops.SMALL_RUNS = small
+
+
+def _kernel_ids_result(ids):
+    try:
+        out = kernel_ids(ids, F, torch.device("cpu"))
+    except Exception as e:                  # noqa: BLE001
+        return type(e)
+    assert isinstance(out, np.ndarray) and out.dtype == np.int32
+    assert out.ndim == 1 and out.flags.c_contiguous
+    return out.tolist()
+
+
+KERNEL_IDS = {
+    "in-range": [3, 1, 2], "last-frame": [F - 1], "past-end": [F],
+    "negative": [-1], "negative-among-many": [5] * 20 + [-3],
+    "empty": [], "1-id": [7], "16-ids": list(range(16)),
+    "64-ids": list(range(64)), "65-ids": [i % F for i in range(65)],
+    "65-ids-past-end": [i % F for i in range(64)] + [F],
+    "64-ids-last-past-end": list(range(63)) + [F + 1000],
+    "2-d": [[1, 2], [3, 4]],
+}
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64", "list"])
+@pytest.mark.parametrize("case", sorted(KERNEL_IDS))
+def test_kernel_ids_checks_few_ids_as_numpy_does(monkeypatch, case, dtype):
+    """kernel_ids' check of up to ``SMALL_RUNS`` ids as Python ints raises
+    and passes exactly where its numpy path does, for the pool's own int32
+    tables and for other ids; and an int32 table passes through uncopied
+    on both paths."""
+    ids = KERNEL_IDS[case]
+    if dtype != "list":
+        ids = np.array(ids, dtype)
+    small = _kernel_ids_result(ids)
+    if dtype == "int32" and ids.ndim == 1 and small is not IndexError:
+        assert kernel_ids(ids, F, torch.device("cpu")) is ids
+    monkeypatch.setattr(pg_ops, "SMALL_RUNS", -1)
+    assert small == _kernel_ids_result(ids)
+    if dtype == "int32" and ids.ndim == 1 and small is not IndexError:
+        assert kernel_ids(ids, F, torch.device("cpu")) is ids
+    want = (IndexError if any(not 0 <= i < F
+                              for i in np.ravel(KERNEL_IDS[case]))
+            else np.ravel(KERNEL_IDS[case]).astype(int).tolist())
+    assert small == want
+
+
+@pytest.mark.parametrize("n, cut, base, want", [
+    (1, 0, 0, "bulk-value"),            # the replay's runs
+    (100, 0, 0, "bulk-value"),          # exactly the capacity
+    (101, 0, 0, "bulk-device"),         # one past it: run_spans uploaded
+    (3, 4, 0, None),                    # an output ending off 16 bytes
+    (3, 0, 4, None),                    # a misaligned output
+])
+def test_gather_runs_hands_the_c_entry_its_runs_as_bytes(monkeypatch, n,
+                                                         cut, base, want):
+    """``bulk_copy.gather_runs`` takes ``runs_route``'s route, decided
+    before anything is uploaded.  On ``bulk-value`` it makes one call of
+    the C entry ``bulk_gather_runs`` with ``starts.tobytes()``,
+    ``lens.tobytes()``, ``n``, the row and the limit, and no numpy plan;
+    past the capacity it hands ``run_spans``' table to ``copy_spans``."""
+    row, E = 512, 128
+    starts = np.arange(0, 3 * n, 3, dtype=np.int64)
+    lens = np.ones(n, np.int64) + np.arange(n) % 2
+    limit = int(lens.sum()) * row - cut
+    src = torch.zeros(3 * n + 2, E)
+    buf = torch.zeros(int(lens.sum()) * E + 4)
+    dst = buf[base // 4:]
+    calls, spans = [], []
+
+    def function(lib, entry, argtypes):
+        assert lib == "bulk_copy"
+
+        def fn(*args):
+            calls.append((entry, args))
+            return 0
+        return fn
+
+    def copy_spans(d, s, table):
+        spans.append(table)
+        return "bulk-device"
+    monkeypatch.setattr(bulk_copy.build, "function", function)
+    monkeypatch.setattr(bulk_copy.build, "stream", lambda device: 77)
+    monkeypatch.setattr(bulk_copy, "_limits",
+                        {"ids": 100, "spans": 100, "param_bytes": 0})
+    monkeypatch.setattr(bulk_copy, "copy_spans", copy_spans)
+    route = bulk_copy.gather_runs(dst, src, starts, lens, row, limit)
+    assert route == want == bulk_copy.runs_route(
+        n, row, limit, 100, dst.data_ptr(), src.data_ptr())
+    if want == "bulk-value":
+        assert calls == [("bulk_gather_runs", (
+            dst.data_ptr(), src.data_ptr(), starts.tobytes(), lens.tobytes(),
+            n, row, limit, 77))]
+        assert not spans
+    elif want == "bulk-device":
+        assert not calls and len(spans) == 1
+        np.testing.assert_array_equal(
+            spans[0], bulk_copy.span_table(*run_spans(starts, lens, row,
+                                                      limit)))
+    else:
+        assert not calls and not spans
+
+
+def test_gather_ids_hands_the_c_entry_its_ids_as_bytes(monkeypatch):
+    """Host ids within the by-value capacity reach ``bulk_gather_ids`` as
+    ``ids.tobytes()``, with no device table; ids past it are uploaded and
+    passed by their device pointer alone."""
+    calls = []
+
+    def function(lib, entry, argtypes):
+        def fn(*args):
+            calls.append((entry, args))
+            return 0
+        return fn
+    monkeypatch.setattr(bulk_copy.build, "function", function)
+    monkeypatch.setattr(bulk_copy.build, "stream", lambda device: 77)
+    monkeypatch.setattr(bulk_copy, "_limits",
+                        {"ids": 4, "spans": 4, "param_bytes": 0})
+    src, dst = torch.zeros(F, E), torch.zeros(5, E)
+    row = E * 4
+    ids = np.array([7, 3, 3, 60], np.int32)
+    assert bulk_copy.gather_ids(dst, src, ids, row, 4 * row) == "bulk-value"
+    assert calls == [("bulk_gather_ids", (dst.data_ptr(), src.data_ptr(),
+                                          ids.tobytes(), None, 4, row,
+                                          4 * row, 77))]
+    calls.clear()
+    ids = np.array([7, 3, 3, 60, 1], np.int32)
+    assert bulk_copy.gather_ids(dst, src, ids, row, 5 * row) == "bulk-device"
+    (entry, args), = calls
+    assert entry == "bulk_gather_ids" and args[2] is None
+    assert isinstance(args[3], int) and args[4:] == (5, row, 5 * row, 77)
