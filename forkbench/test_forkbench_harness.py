@@ -1,0 +1,149 @@
+"""The harness on the CPU, at tiny sizes: a run of each traffic mix prints
+a well-formed last line; new configuration, traffic and metric files are
+found by name; and with the timed path broken underneath, ``correct``
+comes out false."""
+import json
+import time
+
+import pytest
+import torch
+
+from forkbench import harness
+from forkbench.conftest import CELLS
+
+SEED = 2 ** 31 + 11          # past 32 signed bits, as the driver's are
+
+
+def run_cell(root, cell, trace=False, seconds=0.6, seed=SEED, **kw):
+    t0 = time.perf_counter()
+    return harness.run(harness.load_cell(root, cell), seed, seconds, trace,
+                       torch.device("cpu"), t0, **kw)
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_a_run_prints_a_well_formed_last_line(tiny_root, cell, trace, capsys):
+    out = run_cell(tiny_root, cell, bool(trace))
+    harness.emit(out)
+    stdout, stderr = capsys.readouterr()
+    line = json.loads(stdout.strip().splitlines()[-1])
+    assert list(line)[:5] == ["correct", "attempted", "failed", "metrics",
+                              "device"]
+    assert list(line)[-1] == "checks"
+    assert line["correct"] is True and line["failed"] == 0
+    assert line["attempted"] >= 1
+    tail = stderr.strip().splitlines()[-len(line["checks"]):]
+    for (name, c), said in zip(line["checks"].items(), tail):
+        assert f"check {name}: {c['value']!r} (limit {c['limit']!r})" in said
+        assert c["value"] <= c["limit"]
+    bench = json.loads((tiny_root / "BENCHMARK.json").read_text())
+    want = {m["name"] for m in bench["per_layer" if trace else "end_to_end"]
+            if cell in m.get("workloads", [cell])}
+    got = set(line["metrics"])
+    assert got <= want
+    host = {m["name"] for m in bench["end_to_end"] + bench["per_layer"]
+            if m["source"] == "host_clock"} - {"peak_device_gb"}
+    assert want & host <= got          # the CPU reads every host metric
+    for m in line["metrics"].values():
+        assert set(m) == {"value", "unit"} and m["value"] >= 0
+    dev = line["device"]
+    assert {"platform", "kind", "count", "memory_peak_bytes"} <= set(dev)
+    if trace:
+        assert {"busy_s", "window_s"} <= set(dev)
+        assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+def test_new_files_are_found_by_name(tiny_root):
+    """A configuration, a traffic mix and a metric added as files, and
+    named in BENCHMARK.json, run with no other edit."""
+    b = tiny_root / "forkbench"
+    conf = json.loads((b / "configs" / "tiny-dense.json").read_text())
+    conf["name"] = conf["port"]["name"] = "tiny-deep"
+    conf["model"]["num_layers"] = 3
+    (b / "configs" / "tiny-deep.json").write_text(json.dumps(conf))
+    mix = json.loads((b / "traffic" / "coldstart.json").read_text())
+    mix["output"].update(min=1, max=1)
+    (b / "traffic" / "one-token.json").write_text(json.dumps(mix))
+    (b / "metrics" / "tokens_served.py").write_text(
+        "def read(run):\n"
+        "    return float(sum(len(v.tokens) for v in run.ok))\n")
+    bench = json.loads((tiny_root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "tiny-deep", "source": "tiny",
+                             "file": "forkbench/configs/tiny-deep.json",
+                             "reduced": [], "why": "a CPU test"})
+    bench["workloads"].append({"name": "tiny-deep.one-token",
+                               "config": "tiny-deep", "traffic": "one-token",
+                               "chips": 1, "why": "a CPU test"})
+    bench["end_to_end"].append({"name": "tokens_served", "unit": "tokens",
+                                "better": "higher", "bound": 0.25,
+                                "source": "host_clock",
+                                "workloads": ["tiny-deep.one-token"]})
+    (tiny_root / "BENCHMARK.json").write_text(json.dumps(bench))
+    out = run_cell(tiny_root, "tiny-deep.one-token")
+    assert out["correct"]
+    # max_tokens 1: the prefill's token, and one decode step past it
+    assert out["metrics"]["tokens_served"]["value"] == 2 * out["attempted"]
+    assert "setup_s" in out["metrics"] and "invoke_s" not in out["metrics"]
+
+
+def _alter_token(monkeypatch):
+    from repro_torch.serving import engine
+    real = engine.sample
+    monkeypatch.setattr(engine, "sample",
+                        lambda logits: (real(logits) + 1) % logits.shape[-1])
+
+
+def _skip_kv_write(monkeypatch):
+    """A decode step that leaves the cache as it was."""
+    from repro_torch.serving.engine import ServingEngine
+    monkeypatch.setattr(ServingEngine, "_write_token",
+                        lambda self, sids, layer, k, v: None)
+
+
+def _corrupt_page(monkeypatch):
+    """A fork whose assembled leaves carry one wrong element."""
+    from repro_torch.memory.pool import PagePool
+    real = PagePool.assemble
+
+    def assemble(self, dtype, frames, shape):
+        out = real(self, dtype, frames, shape)
+        if out.numel() > 1000:
+            out.view(-1)[1000] += 1.0
+        return out
+    monkeypatch.setattr(PagePool, "assemble", assemble)
+
+
+@pytest.mark.parametrize("fault", [_alter_token, _skip_kv_write,
+                                   _corrupt_page])
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_a_broken_timed_path_is_not_correct(tiny_root, cell, fault,
+                                            monkeypatch):
+    fault(monkeypatch)
+    out = run_cell(tiny_root, cell)
+    assert out["correct"] is False
+    checks = out["checks"]
+    assert any(c["value"] > c["limit"] for c in checks.values())
+
+
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_the_control_fails_the_limit(tiny_root, cell):
+    """The reference computed in TF32 in the program's place, judged by
+    the same comparison at the same served positions, is not correct,
+    where the program is: its logits read past the limit."""
+    out = run_cell(tiny_root, cell, seconds=1.5, control=True)
+    assert out["correct"] is True and out["control"]["correct"] is False
+    limit = out["checks"]["logit_err_p90"]["limit"]
+    assert out["served"]["logit_err_p90"] <= limit
+    assert out["control"]["checks"]["logit_err_p90"]["value"] > limit
+    assert out["control"]["checks"]["fork_mismatch"] == \
+        out["checks"]["fork_mismatch"]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cell", ["stablelm-3b.coldstart",
+                                  "mixtral-8x7b-2L.warm"])
+def test_a_cell_is_correct_on_the_card(cuda, cell):
+    from forkbench.conftest import ROOT
+    out = harness.run(harness.load_cell(ROOT, cell), SEED, 10.0, False, cuda,
+                      time.perf_counter())
+    assert out["correct"], out["checks"]
