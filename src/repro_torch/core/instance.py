@@ -13,7 +13,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import _dtypes
+from repro_torch import _dtypes, tracing
 from repro_torch.core import descriptor as desc_mod
 from repro_torch.core.pagetable import VMA, AddressSpace
 from repro_torch.core.prefetch import PrefetchEngine
@@ -136,7 +136,8 @@ class ModelInstance:
                 engine.issue_ahead(name, pages)
             return
         self.stats["faults"] += 1
-        self._fetch_now(vma, want)
+        with tracing.span("instance.fault", vma=name, pages=int(want.size)):
+            self._fetch_now(vma, want)
         if engine is not None:
             engine.issue_ahead(name, want)
 
@@ -173,7 +174,8 @@ class ModelInstance:
                                                    remote_frames)
             hit = cached >= 0
             if hit.any():
-                data = self.node.pool.read_pages_host(vma.dtype, cached[hit])
+                data = self.node.pool.read_pages_host(vma.dtype, cached[hit],
+                                                      site="cache")
                 self._adopt_pages(vma, plist[hit], data)
                 self.stats["pages_cached"] += int(hit.sum())
 
@@ -353,17 +355,19 @@ class ModelInstance:
         OWNS (recorded for free-time invalidation) and mark ``pages``
         resident there.  The single ownership-bookkeeping site for every
         materialization path (transport fetch, cache hit, fallback, COW)."""
-        san = self.node.network.sanitizer
-        if san is not None:
-            san.adopt_payload(
-                data, rows=len(pages),
-                row_bytes=self.node.pool.page_elems
-                * _dtypes.itemsize(vma.dtype),
-                op=f"adopt {vma.name}@{self.node.node_id}")
-        local = self.node.pool.alloc(vma.dtype, len(pages))
-        self.node.pool.write_pages(vma.dtype, local, data)
-        self._owned_frames.setdefault(vma.dtype, []).extend(local.tolist())
-        vma.mark_resident(pages, local)
+        with tracing.span("instance.adopt", vma=vma.name, pages=len(pages)):
+            san = self.node.network.sanitizer
+            if san is not None:
+                san.adopt_payload(
+                    data, rows=len(pages),
+                    row_bytes=self.node.pool.page_elems
+                    * _dtypes.itemsize(vma.dtype),
+                    op=f"adopt {vma.name}@{self.node.node_id}")
+            local = self.node.pool.alloc(vma.dtype, len(pages))
+            self.node.pool.write_pages(vma.dtype, local, data)
+            self._owned_frames.setdefault(vma.dtype, []).extend(
+                local.tolist())
+            vma.mark_resident(pages, local)
         return local
 
     def write_pages(self, name: str, pages, data) -> None:

@@ -19,6 +19,7 @@ import math
 import time
 from typing import Optional, Sequence
 
+from repro_torch import tracing
 from repro_torch.core.descriptor import Descriptor
 from repro_torch.core.instance import ModelInstance
 from repro_torch.core.pagetable import VMA
@@ -162,26 +163,29 @@ class ForkHandle:
         routes each VMA over its own transport (e.g. hot weights on ``dct``,
         cold optimizer state on ``shared_fs``); with a single parent every
         route's owner is this handle's parent."""
-        policy = ForkPolicy.coerce(policy)
-        desc = self.fetch_descriptor(child_node, policy)
-        plan = None
-        if placement is not None:
-            plan = placement.plan_for(desc, [self.parent_node])
+        with tracing.span("fork.resume", node=child_node.node_id):
+            policy = ForkPolicy.coerce(policy)
+            desc = self.fetch_descriptor(child_node, policy)
+            plan = None
+            if placement is not None:
+                plan = placement.plan_for(desc, [self.parent_node])
 
-        # 3) child address space: page tables shifted one hop up, each VMA
-        #    stamped with its owner chain (and plan transport, if routed)
-        prepared = desc.extra["prepared_keys"]
-        aspace = {}
-        for vd in desc.vmas:
-            vma = VMA.from_table_dict(vd)
-            vma = vma.child_view(prepared[vma.name],
-                                 parent_node=self.parent_node,
-                                 default_ancestry=desc.ancestry)
-            if plan is not None and vma.name in plan:
-                vma.transport = plan[vma.name].transport or vma.transport
-            aspace[vma.name] = vma
-        ancestry = [self.parent_node] + list(desc.ancestry)
-        return instantiate_child(child_node, policy, desc, aspace, ancestry)
+            # 3) child address space: page tables shifted one hop up, each
+            #    VMA stamped with its owner chain (and plan transport, if
+            #    routed)
+            prepared = desc.extra["prepared_keys"]
+            aspace = {}
+            for vd in desc.vmas:
+                vma = VMA.from_table_dict(vd)
+                vma = vma.child_view(prepared[vma.name],
+                                     parent_node=self.parent_node,
+                                     default_ancestry=desc.ancestry)
+                if plan is not None and vma.name in plan:
+                    vma.transport = plan[vma.name].transport or vma.transport
+                aspace[vma.name] = vma
+            ancestry = [self.parent_node] + list(desc.ancestry)
+            return instantiate_child(child_node, policy, desc, aspace,
+                                     ancestry)
 
     def renew(self, extend: Optional[float] = None) -> "ForkHandle":
         """Extend the lease at the parent by ``extend`` seconds (default:

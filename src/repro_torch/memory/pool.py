@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import _dtypes
+from repro_torch import _dtypes, tracing
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.cow_scatter.ops import cow_scatter, cow_scatter_runs
 from repro_torch.kernels.page_gather.ops import (gather_assemble, page_gather,
@@ -238,7 +238,9 @@ class PagePool:
     def _device_payload(self, dt: str, data) -> torch.Tensor:
         if isinstance(data, torch.Tensor):
             return data
-        return _dtypes.from_numpy(np.asarray(data), dt, self.device)
+        data = np.asarray(data)
+        tracing.count("stage.htod_bytes", data.nbytes)
+        return _dtypes.from_numpy(data, dt, self.device)
 
     def write_pages(self, dtype, frames, pages) -> None:
         """COW-commit ``pages`` into ``frames``.  Device pools route through
@@ -328,16 +330,21 @@ class PagePool:
         return _dtypes.from_numpy(self._gather_host(dt, idx), dt)
 
     def read_pages_host(self, dtype, frames,
-                        out: Optional[np.ndarray] = None) -> np.ndarray:
+                        out: Optional[np.ndarray] = None,
+                        site: str = "wire") -> np.ndarray:
         """Gather frames -> (n, page_elems) as a HOST numpy array in the
         pool's storage dtype.  This is what moves on the wire: the RNIC
         analogue DMAs physical frames, and the payload only becomes a
         device tensor at adoption/assembly time.  ``out`` (optionally
-        pre-allocated by the caller) receives the pages in place."""
+        pre-allocated by the caller) receives the pages in place.  On a
+        device pool the bytes copied to the host count as
+        ``stage.dtoh_bytes.<site>`` (``wire``, or ``cache`` for a sibling
+        cache hit) in ``repro_torch.tracing``."""
         dt = self._dt(dtype)
         idx = np.asarray(frames, np.int32)
         if self.device is not None:
             data = _dtypes.to_numpy(self.read_pages(dtype, frames))
+            tracing.count("stage.dtoh_bytes." + site, data.nbytes)
             if out is not None:
                 out[...] = data
                 return out
@@ -357,16 +364,17 @@ class PagePool:
         idx = np.asarray(frames, np.int32)
         self._count("pool.assemble_pages", int(idx.size))
         size = int(np.prod(shape)) if len(tuple(shape)) else 1
-        if self.device is not None:
-            out = gather_assemble(self._frames[dt], idx, shape,
-                                  backend=self.kernel_backend)
-            self._drain_kernel_meters()
-            return out
-        flat = np.empty(idx.size * self.page_elems,
-                        self._frames[dt].dtype)
-        self._gather_host(dt, idx, out=flat.reshape(idx.size,
-                                                    self.page_elems))
-        return _dtypes.from_numpy(flat[:size].reshape(shape), dt)
+        with tracing.span("pool.assemble", pages=int(idx.size)):
+            if self.device is not None:
+                out = gather_assemble(self._frames[dt], idx, shape,
+                                      backend=self.kernel_backend)
+                self._drain_kernel_meters()
+                return out
+            flat = np.empty(idx.size * self.page_elems,
+                            self._frames[dt].dtype)
+            self._gather_host(dt, idx, out=flat.reshape(idx.size,
+                                                        self.page_elems))
+            return _dtypes.from_numpy(flat[:size].reshape(shape), dt)
 
     def frames_array(self, dtype):
         """Expose raw physical frames (what the RNIC reads): the device

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.distributed import comm, ctx
 from repro_torch.distributed.sharding import moe_split
 from repro_torch.models.layers import _enter, _leave, ninit
@@ -138,6 +139,8 @@ def _moe(params, x, cfg, tp, groups, return_aux):
         El = E // tp.size
         e0 = tp.rank * El
         keep = keep & (se >= e0) & (se < e0 + El)
+    tracing.count("moe.routed_rows", T * K)      # host ints: no sync
+    tracing.count("moe.expert_rows", El * cap)
     dest = torch.where(keep, (se - e0) * cap + rank,
                        torch.full_like(rank, El * cap))            # drop slot
 

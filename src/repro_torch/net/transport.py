@@ -55,6 +55,7 @@ from typing import ClassVar, Dict, List, Optional, Type
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.net.errors import RetriesExhausted
 
 
@@ -269,7 +270,9 @@ class Transport(abc.ABC):
         setup = self._setup(src, dst, defer=async_read, user=user)
         # the wire payload is HOST memory (the RNIC DMAs physical frames);
         # device materialization happens at tensor assembly, not per fault
-        pages = node.pool.read_pages_host(dtype, frames)
+        with tracing.span("net.read_pages", owner=dst,
+                          pages=int(np.asarray(frames).size)):
+            pages = node.pool.read_pages_host(dtype, frames)
         nbytes = pages.size * pages.dtype.itemsize
         sges = contiguous_runs(frames)
         ops = max(1, math.ceil(sges / self.max_sge))

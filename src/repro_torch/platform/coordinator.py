@@ -23,6 +23,7 @@ import time
 from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Union
 
+from repro_torch import tracing
 from repro_torch.core.instance import ModelInstance
 from repro_torch.core.pagetable import VMA
 from repro_torch.fork import ForkHandle, ForkPolicy
@@ -327,9 +328,10 @@ class Coordinator:
                node: Optional[NodeRuntime] = None, policy: str = "fork",
                lazy: bool = True, prefetch: int = 1) -> tuple:
         """Returns (outputs, instance). policy: fork | cache | coldstart."""
-        inst = self.acquire_instance(func, node=node, policy=policy,
-                                     lazy=lazy, prefetch=prefetch)
-        out = self.functions[func].behavior(inst, inputs or {})
+        with tracing.span("invoke", request=True, func=func, policy=policy):
+            inst = self.acquire_instance(func, node=node, policy=policy,
+                                         lazy=lazy, prefetch=prefetch)
+            out = self.functions[func].behavior(inst, inputs or {})
         return out, inst
 
     def release(self, func: str, inst: ModelInstance, policy: str) -> None:
@@ -338,10 +340,11 @@ class Coordinator:
         platform seed is NOT freed here — the seed store owns it until its
         lease expires (coldstart registers the first container as seed, and
         freeing it would yank the live seed out from under later forks)."""
-        if policy == "cache":
-            self.cached.setdefault(func, []).append((inst, self.clock()))
-        elif not self._pinned_as_seed(inst):
-            inst.free()
+        with tracing.span("release", func=func, policy=policy):
+            if policy == "cache":
+                self.cached.setdefault(func, []).append((inst, self.clock()))
+            elif not self._pinned_as_seed(inst):
+                inst.free()
 
     def _pinned_as_seed(self, inst: ModelInstance) -> bool:
         for seed in self.seed_store.values():

@@ -19,7 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import _dtypes
+from repro_torch import _dtypes, tracing
 from repro_torch.configs.base import ArchConfig, AttnSpec
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import layers as L
@@ -213,10 +213,13 @@ class ServingEngine:
         decode all active. Returns finished request ids."""
         if self.waiting:
             rid = self.waiting.pop(0)
-            self._prefill(self.requests[rid])
+            req = self.requests[rid]
+            with tracing.span("serve.prefill", tokens=len(req.prompt)):
+                self._prefill(req)
             self.active.append(rid)
         if self.active:
-            self._decode_batch(self.active)
+            with tracing.span("serve.decode", batch=len(self.active)):
+                self._decode_batch(self.active)
         finished = [r for r in self.active if self.requests[r].done]
         for r in finished:
             self.active.remove(r)
