@@ -66,6 +66,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    ``launch.finra.run`` (gemma3-1b, 8 rules, a 6 MB market), each
    transfer on a fresh 4-node cluster, held as in phase 5, the four copy
    kernels launched, each by a bulk route;
+5c. the wire payload through page-locked host memory (*pinned
+   staging*): a gemma3-1b seed at full width on one device-pool node,
+   forked onto two more in turn with ``repro_torch.tracing`` on: each
+   child bit-equal to the seed, and every byte staged through the host
+   (``stage.*``) staged through page-locked memory (``pinned.*``, 100%).
+   One line: each fork's download and upload rate and the pinned host
+   memory the caching host allocator holds;
 6. trace replay on pools on the card: Figure 20's spike (10,050
    invocations, 64 nodes, 4 KiB pages) under ``ForkOnDemand`` and
    ``KeepWarm``, whose event-log digests must equal ``BENCH_spikes.json``'s
@@ -1406,6 +1413,77 @@ def finra_example(dev, arch="gemma3-1b", market_mb=6.0, n_rules=8) -> dict:
     return out
 
 
+def pinned_staging(torch, dev, arch="gemma3-1b") -> dict:
+    """Phase 5c on ``dev``; returns its line.  A seed of ``arch`` (the
+    quickstart's model) on one device-pool node is forked onto two more,
+    one after the other, with the tracer on.  Each child must be
+    bit-equal to the seed, and every byte staged through the host must
+    have gone through page-locked memory on a CUDA pool (the ``pinned.*``
+    share of ``stage.*``: 100%; 0% on the CPU).  A fork's download and
+    upload rates are its bytes over its summed ``net.read_pages`` and
+    ``instance.adopt`` spans (the first fork page-locks the caching host
+    allocator's blocks, the second reuses them)."""
+    from repro_torch import tracing
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.instance import ModelInstance
+    from repro_torch.fork import ForkPolicy
+    from repro_torch.models import lm
+    from repro_torch.net import Network
+    from repro_torch.platform.node import NodeRuntime
+    cfg = dataclasses.replace(get_arch(arch), compute_dtype="float32")
+    net = Network()
+    nodes = [NodeRuntime(f"node{i}", net, device_pool=True, device=dev)
+             for i in range(3)]
+    params = lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    handle = nodes[0].prepare_fork(
+        ModelInstance.create(nodes[0], cfg.name, params))
+    want = 100.0 if dev.type == "cuda" else 0.0
+    forks = []
+    for node in nodes[1:]:
+        tracing.reset()
+        tracing.enable()
+        try:
+            t0 = time.perf_counter()
+            child = handle.resume_on(node, ForkPolicy(lazy=True, prefetch=1))
+            tree = child.materialize_pytree()
+            sync_dev(torch, dev)
+            wall = time.perf_counter() - t0
+        finally:
+            tracing.disable()
+        snap = tracing.snapshot()
+        tracing.reset()
+        same_leaves(torch, tree, params, f"pinned staging: {node.node_id}")
+        c = snap["counters"]
+        down = sum(v for k, v in c.items()
+                   if k.startswith("stage.dtoh_bytes."))
+        up = c.get("stage.htod_bytes", 0)
+        pinned = c.get("pinned.dtoh_bytes", 0) + c.get("pinned.htod_bytes", 0)
+        share = 100.0 * pinned / (down + up) if down + up else None
+        if not down or up != down or share != want:
+            raise AssertionError(f"pinned staging: {node.node_id} staged "
+                                 f"{down} down, {up} up, {share}% pinned "
+                                 f"(want {want}%): {c}")
+        span_s = {n: sum(s.seconds for s in snap["spans"] if s.name == n)
+                  for n in ("net.read_pages", "instance.adopt")}
+        forks.append({"node": node.node_id, "fork_wall_s": wall,
+                      "pages_rdma": child.stats["pages_rdma"],
+                      "dtoh_bytes": down, "htod_bytes": up,
+                      "pinned_pct": share, **{k + "_s": v
+                                              for k, v in span_s.items()},
+                      "dtoh_gbps": down / span_s["net.read_pages"] / 1e9,
+                      "htod_gbps": up / span_s["instance.adopt"] / 1e9})
+    line = {"arch": cfg.name, "seed_bytes": sum(
+        t.numel() * t.element_size() for _, t in flat_leaves(params)),
+        "forks": forks}
+    if dev.type == "cuda":
+        line["host_memory_stats"] = {
+            k: v for k, v in torch.cuda.host_memory_stats().items()
+            if "bytes" in k}
+    print("[smoke] pinned staging: " + json.dumps(line))
+    return line
+
+
 def fig22_replay(device, faults=None):
     """Figure 22's replay (``FIG22``) with every pool on ``device`` (None:
     host pools) under ``faults(node_ids, trace_seconds)``, by default the
@@ -2484,6 +2562,7 @@ def main() -> int:
     _, examples["finra"] = run_phase(
         torch, "examples", lambda: finra_example(dev),
         required=COPY_KERNELS, bulk=BULK_KERNELS)
+    pinned_staging(torch, dev)
     _, replay_launches = run_phase(torch, "replay",
                                    lambda: replay_phase(torch, dev),
                                    required=(), bulk=BULK_KERNELS)

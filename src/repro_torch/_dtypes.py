@@ -57,13 +57,26 @@ def itemsize(dtype) -> int:
     return _NUMPY[name(dtype)].itemsize
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Tensor -> host numpy array in its storage dtype (bf16 as uint16)."""
+def to_numpy(t: torch.Tensor, pinned: bool = False) -> np.ndarray:
+    """Tensor -> host numpy array in its storage dtype (bf16 as uint16).
+
+    ``pinned`` (a CUDA tensor only) copies into a fresh page-locked block
+    of torch's caching host allocator instead of pageable memory, so the
+    copy runs at the host link's DMA rate.  The copy is synchronous: the
+    array holds the data on return.  The array keeps its block alive, and
+    the allocator hands the block out again only once the array is freed.
+    """
     t = t.detach()
-    if t.dtype == torch.bfloat16:
+    bf16 = t.dtype == torch.bfloat16
+    if bf16:
         t = t.view(torch.int16)
-        return t.cpu().numpy().view(np.uint16)
-    return t.cpu().numpy()
+    if pinned:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+    else:
+        host = t.cpu()
+    a = host.numpy()
+    return a.view(np.uint16) if bf16 else a
 
 
 def from_numpy(a: np.ndarray, dtype, device=None) -> torch.Tensor:

@@ -240,7 +240,17 @@ class PagePool:
             return data
         data = np.asarray(data)
         tracing.count("stage.htod_bytes", data.nbytes)
-        return _dtypes.from_numpy(data, dt, self.device)
+        host = _dtypes.from_numpy(data, dt)
+        # read_pages_host's payload on a CUDA pool is page-locked: the
+        # synchronous copy reads it directly, at DMA rate, and has ended
+        # before the block can be freed and handed out again.  The check
+        # serves only the counter and costs a CUDA API call per payload,
+        # which the replay's many small forks feel, so only a traced run
+        # makes it.
+        if tracing.enabled() and self.device.type == "cuda" \
+                and host.is_pinned():
+            tracing.count("pinned.htod_bytes", data.nbytes)
+        return host.to(self.device)
 
     def write_pages(self, dtype, frames, pages) -> None:
         """COW-commit ``pages`` into ``frames``.  Device pools route through
@@ -339,12 +349,21 @@ class PagePool:
         pre-allocated by the caller) receives the pages in place.  On a
         device pool the bytes copied to the host count as
         ``stage.dtoh_bytes.<site>`` (``wire``, or ``cache`` for a sibling
-        cache hit) in ``repro_torch.tracing``."""
+        cache hit) in ``repro_torch.tracing``.
+
+        On a CUDA pool with no ``out`` the pages land in page-locked host
+        memory (``pinned.dtoh_bytes``), from which ``write_pages`` uploads
+        them again (``pinned.htod_bytes``): both copies then run at the
+        host link's DMA rate, where pageable memory takes first-touch
+        faults and a bounce buffer of the CUDA runtime."""
         dt = self._dt(dtype)
         idx = np.asarray(frames, np.int32)
         if self.device is not None:
-            data = _dtypes.to_numpy(self.read_pages(dtype, frames))
+            pinned = out is None and self.device.type == "cuda"
+            data = _dtypes.to_numpy(self.read_pages(dtype, frames), pinned)
             tracing.count("stage.dtoh_bytes." + site, data.nbytes)
+            if pinned:
+                tracing.count("pinned.dtoh_bytes", data.nbytes)
             if out is not None:
                 out[...] = data
                 return out

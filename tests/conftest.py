@@ -10,6 +10,11 @@ from repro.platform.coordinator import Coordinator, FunctionDef
 from repro.platform.node import NodeRuntime
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (skips where there is none)")
+
+
 class FakeClock:
     def __init__(self):
         self.t = 0.0
