@@ -1,7 +1,8 @@
 """Fixtures of the benchmark's CPU tests: a benchmark root in a temporary
 directory with tiny configurations of the two block kinds (dense and
-MoE), the real traffic mixes cut to tiny lengths, and the real metric
-readers, run on the CPU's pools and the kernels' plain versions.
+MoE), each real cell's tiny twin under the real traffic mixes cut to tiny
+lengths, and the real metric readers, run on the CPU's pools and the
+kernels' plain versions.
 
 Tests that need the card carry the ``card`` marker and decide whether
 there is one in the ``cuda`` fixture, never at import."""
@@ -15,10 +16,12 @@ import torch
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 CELLS = {"tiny-dense.coldstart": ("tiny-dense", "coldstart"),
-         "tiny-moe.warm": ("tiny-moe", "warm")}
+         "tiny-moe.warm": ("tiny-moe", "warm"),
+         "tiny-moe.coldstart": ("tiny-moe", "coldstart")}
 # the real cells' names, for the per-metric workload lists
 REAL = {"stablelm-3b.coldstart": "tiny-dense.coldstart",
-        "mixtral-8x7b-2L.warm": "tiny-moe.warm"}
+        "mixtral-8x7b-2L.warm": "tiny-moe.warm",
+        "mixtral-8x7b-2L.coldstart": "tiny-moe.coldstart"}
 
 
 def pytest_configure(config):
@@ -76,11 +79,14 @@ def make_root(tmp: Path) -> Path:
     bench["configs"], bench["workloads"] = [], []
     for cell, (conf, mix) in CELLS.items():
         path = f"{BENCH.name}/configs/{conf}.json"
-        (tmp / path).write_text(json.dumps(tiny_config(conf, "moe" in conf)))
         (tmp / BENCH.name / "traffic" / f"{mix}.json").write_text(
             json.dumps(tiny_mix(mix)))
-        bench["configs"].append({"name": conf, "source": "tiny", "file": path,
-                                 "reduced": [], "why": "a CPU test"})
+        if not (tmp / path).exists():
+            (tmp / path).write_text(json.dumps(tiny_config(conf,
+                                                           "moe" in conf)))
+            bench["configs"].append({"name": conf, "source": "tiny",
+                                     "file": path, "reduced": [],
+                                     "why": "a CPU test"})
         bench["workloads"].append({"name": cell, "config": conf,
                                    "traffic": mix, "chips": 1,
                                    "why": "a CPU test"})

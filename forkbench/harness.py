@@ -4,11 +4,22 @@ plain reference, and the metrics, all found by name from
 
 - The cell names a configuration (``configs[].file``: the model's sizes,
   the port's arch, the pool's page size and the check's limits) and a
-  traffic mix (``forkbench/traffic/<traffic>.json``).
+  traffic mix (``forkbench/traffic/<traffic>.json``).  The configuration's
+  architecture (``model.arch``, ``gqa_moe`` where absent) is
+  ``forkbench/archs/<arch>.py``: its checks, the program's config, the
+  weights' layout, the reference and the roofline's counts.
 - Every metric of the cell is read by ``forkbench/metrics/<name>.py``'s
   ``read(run)`` from the run's record (``Run``); a reader that finds
   nothing returns None and the metric is left out.  ``--trace 0`` reads
-  the cell's end-to-end metrics, ``--trace 1`` its per-layer ones.
+  the cell's end-to-end metrics, ``--trace 1`` its per-layer ones.  A
+  metric with a ``workloads`` list is the cell's where the list names
+  it; a per-layer metric without one is every cell's whose end-to-end
+  metrics hold the one it ``moves`` (``cell_metrics``).
+- A ``--trace 1`` window runs a sub-window of its invocations (the
+  mix's ``profile``) under the profiler and with the program's tracer
+  (``repro_torch.tracing``) on: reset and enabled as the sub-window
+  opens, disabled as it closes, so set-up, warm-up and the rest of the
+  window record nothing.  ``--trace 0`` never turns the tracer on.
 
 The window drives ``Coordinator.invoke`` on ``NodeRuntime``s whose pools
 live on the card.  The function's behaviour (``Behaviour``) materializes
@@ -27,14 +38,14 @@ import random
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from types import ModuleType
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from forkbench import check, profiling, roofline, traffic
+from forkbench import archs, check, profiling, roofline, traffic
 from forkbench import weights as W
-from forkbench.reference.model import Reference
 
 HERE = Path(__file__).resolve().parent
 FUNC = "model"
@@ -43,13 +54,6 @@ COPY_ENTRIES = ("page_gather", "page_gather_runs", "cow_scatter",
                 "cow_scatter_runs")
 LATE_S = 90.0       # an open-loop request not started this long after the
                     # window closes never comes: it counts as failed
-# keys of the published config and the model dict they must equal
-SAME = {"hidden_size": "d_model", "num_attention_heads": "num_heads",
-        "num_key_value_heads": "num_kv_heads", "vocab_size": "vocab_size",
-        "num_hidden_layers": "num_layers", "n_routed_experts": "moe_experts",
-        "num_local_experts": "moe_experts", "num_experts_per_tok": "moe_topk",
-        "moe_intermediate_size": "moe_d_ff", "rope_theta": "rope_theta",
-        "tie_word_embeddings": "tie_embeddings"}
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +70,7 @@ class Cell:
     metrics_e2e: List[dict]
     metrics_layer: List[dict]
     root: Path
+    arch: ModuleType                   # forkbench/archs/<arch>.py
 
 
 def load_cell(root: Path, name: str) -> Cell:
@@ -76,45 +81,34 @@ def load_cell(root: Path, name: str) -> Cell:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == cell["config"])
     config = json.loads((root / conf["file"]).read_text())
-    check_config(config)
+    arch = archs.load(config["model"], root)
+    arch.check_config(config)
     mix = json.loads((root / HERE.name / "traffic"
                       / f"{cell['traffic']}.json").read_text())
-    mine = lambda m: "workloads" not in m or name in m["workloads"]
     return Cell(name, int(cell["chips"]), config, mix,
-                [m for m in bench["end_to_end"] if mine(m)],
-                [m for m in bench["per_layer"] if mine(m)], root)
+                *cell_metrics(bench, name), root, arch)
 
 
-def check_config(conf: dict) -> None:
-    """The published keys the file holds agree with its ``model`` dict."""
-    m = conf["model"]
-    pairs = dict(SAME)
-    if not m["moe_experts"]:
-        pairs["intermediate_size"] = "d_ff"
-    elif "moe_intermediate_size" not in conf:   # a source whose every
-        pairs["intermediate_size"] = "moe_d_ff"  # layer is experts
-    for hf, key in pairs.items():
-        if hf in conf and conf[hf] != m[key]:
-            raise ValueError(f"{hf}={conf[hf]} but model.{key}={m[key]}")
-    if not m["mlp_gated"]:
-        raise ValueError("the reference has gated MLPs only")
+def cell_metrics(bench: dict, name: str) -> Tuple[List[dict], List[dict]]:
+    """The end-to-end and the per-layer metrics of cell ``name``: a
+    metric's ``workloads`` list where it has one; else an end-to-end
+    metric is every cell's, and a per-layer one every cell's whose
+    end-to-end metrics hold the one it ``moves``, those added later
+    too."""
+    listed = lambda m: "workloads" in m
+    e2e = [m for m in bench["end_to_end"]
+           if not listed(m) or name in m["workloads"]]
+    ends = {m["name"] for m in e2e}
+    layer = [m for m in bench["per_layer"]
+             if (name in m["workloads"] if listed(m)
+                 else m["moves"] in ends)]
+    return e2e, layer
 
 
 def port_config(conf: dict):
-    """The program's ArchConfig of ``conf``: its registered arch with the
-    file's sizes, every block plain attention, float32."""
-    from repro_torch.configs.base import AttnSpec, GroupSpec, get_arch
-    m, base = conf["model"], get_arch(conf["port"]["arch"])
-    if any(u != AttnSpec() for g in base.groups for u in g.unit):
-        raise ValueError(f"{base.name}: the benchmark runs plain attention "
-                         f"blocks only")
-    keys = ("d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
-            "vocab_size", "mlp_gated", "moe_experts", "moe_topk", "moe_d_ff",
-            "moe_capacity_factor", "tie_embeddings", "rope_theta", "norm_eps")
-    return dataclasses.replace(
-        base, name=conf["port"]["name"], **{k: m[k] for k in keys},
-        groups=(GroupSpec(unit=(AttnSpec(),), repeat=m["num_layers"]),),
-        compute_dtype="float32", param_dtype="float32")
+    """The program's ArchConfig of ``conf``, by its architecture's
+    module."""
+    return archs.load(conf["model"]).port_config(conf)
 
 
 def reader(root: Path, metric: str) -> Callable:
@@ -147,6 +141,8 @@ class Invocation:
     tokens: List[int] = dataclasses.field(default_factory=list)
     logits: List[torch.Tensor] = dataclasses.field(default_factory=list)
     failed: bool = False
+    request: Optional[int] = None      # the tracer's request id of its
+                                       # ``invoke`` span, where it traced it
 
     @property
     def latency(self) -> float:
@@ -164,7 +160,16 @@ class Run:
     window_s: float
     peak_bytes: int
     invocations: List[Invocation]
-    trace: dict                        # profiling.summarize, or {}
+    # a traced run's: profiling.summarize, the profiled sub-window's spans
+    # and counters (repro_torch.tracing.snapshot), its device
+    # events (profiling.raw_events) and bounds (ns), and the forks whose
+    # ``invoke`` span the tracer recorded
+    trace: dict = dataclasses.field(default_factory=dict)
+    spans: list = dataclasses.field(default_factory=list)
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
+    device_events: list = dataclasses.field(default_factory=list)
+    profiled: Optional[Tuple[int, int]] = None
+    forks_traced: int = 0
 
     @property
     def ok(self) -> List[Invocation]:
@@ -316,7 +321,7 @@ def setup(cell: Cell, seed: int, device):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sync = make_sync(device)
-    cfg = port_config(cell.config)
+    cfg = cell.arch.port_config(cell.config)
     m = cell.config["model"]
     t = [time.perf_counter()]
     w = W.make(m, seed, device)
@@ -339,18 +344,24 @@ def setup(cell: Cell, seed: int, device):
 
 
 def window(prog: Program, reqs: List[traffic.Request], mix: dict,
-           seconds: float, trace: bool, device):
-    """Drive the window; returns (invocations, its seconds, trace summary).
-    A closed loop starts requests until ``seconds`` have passed; an open
-    loop sends each at its due time and serves every one due."""
+           seconds: float, trace: bool, device, tracer: bool = True):
+    """Drive the window; returns (invocations, its seconds, what a traced
+    window recorded: ``Run``'s fields from ``trace`` on, or {}).  A closed
+    loop starts requests until ``seconds`` have passed; an open loop sends
+    each at its due time and serves every one due.  A traced window runs
+    the profiled sub-window with the program's tracer on, or with it off
+    where ``tracer`` is false (to measure its cost)."""
     closed = mix["loop"] == "closed"
-    prof = label = None
+    prof = label = tracing = None
     first = mix["profile"]["first"]
     last = first + mix["profile"]["count"] - 1
     acts = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     invs: List[Invocation] = []
+    if trace:
+        from repro_torch import tracing
+        tracing.reset()
     gc.collect()
     t_open = time.perf_counter()
     for i, req in enumerate(reqs):
@@ -368,6 +379,8 @@ def window(prog: Program, reqs: List[traffic.Request], mix: dict,
                                        due=due, failed=True))
                 continue
         if trace and i == first:
+            if tracer:
+                tracing.enable()
             prof = profile(activities=acts)
             prof.start()
             label = _Label(profiling.LABEL + "profiled")
@@ -375,15 +388,34 @@ def window(prog: Program, reqs: List[traffic.Request], mix: dict,
         if label is not None and i == last:
             label.close()
             prof.stop()
+            tracing.disable()
             label = None
     if label is not None:
         label.close()
         prof.stop()
+        tracing.disable()
     prog.sync()
     t_close = time.perf_counter()
-    summary = profiling.summarize(prof, range(first, last + 1)) \
-        if prof is not None else {}
-    return invs, t_close - t_open, summary
+    if tracing is None:
+        return invs, t_close - t_open, {}
+    snap = tracing.snapshot()
+    # the tracer starts a request at each ``invoke`` span, in call order
+    roots = [s.request for s in snap["spans"]
+             if s.name == "invoke" and s.parent == -1]
+    traced = [v for v in invs if first <= v.index <= last
+              and v.start > 0.0]
+    if len(roots) == len(traced):
+        for inv, r in zip(traced, roots):
+            inv.request = r
+    out = {"spans": snap["spans"], "counters": snap["counters"],
+           "forks_traced": sum(1 for v in invs
+                               if v.forked and v.request is not None)}
+    if prof is not None:
+        raw = profiling.raw_events(prof)
+        out["trace"] = profiling.summarize(raw, range(first, last + 1))
+        out["device_events"] = raw[1]
+        out["profiled"] = raw[0].get(profiling.LABEL + "profiled")
+    return invs, t_close - t_open, out
 
 
 def check_sample(invs: List[Invocation], reqs, mix: dict, seed: int):
@@ -408,6 +440,13 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     control, the reference in TF32 in the program's place, by the same
     comparison (``forkbench/control.py``); the benchmark's runs leave it
     off."""
+    return run_record(cell, seed, seconds, trace, device, t0, control)[0]
+
+
+def run_record(cell: Cell, seed: int, seconds: float, trace: bool, device,
+               t0: float, control: bool = False, tracer: bool = True):
+    """``run``, returning (the result line's object, the run's record
+    ``Run``); ``tracer`` as ``window`` takes it."""
     dev = torch.device(device)
     m, mix = cell.config["model"], cell.mix
     prog, w = setup(cell, seed, dev)
@@ -415,11 +454,13 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     setup_s = time.perf_counter() - t0
-    invs, window_s, summary = window(prog, reqs, mix, seconds, trace, dev)
+    invs, window_s, traced = window(prog, reqs, mix, seconds, trace, dev,
+                                    tracer)
     setup_parts = prog.setup_parts
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     record = Run(cell.name, m, mix, prog.page_elems, seconds, setup_s,
-                 window_s, peak, invs, summary)
+                 window_s, peak, invs, **traced)
+    summary = record.trace
 
     # the program's state goes before the reference runs: the tree checked
     # is the last invocation's (a cached cell's: the one every invocation
@@ -435,7 +476,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
               if tree is not None else -1}
     del tree
     answers = check_sample(invs, reqs, mix, seed)
-    want = check.reference_rows(Reference(m, w), answers)
+    want = check.reference_rows(cell.arch.Reference(m, w), answers)
     served = check.measure(want, answers)
     limits = cell.config["limits"]
     ok, checks = check.judge(dict(values, **served), limits)
@@ -466,8 +507,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
                           for v in invs if not v.failed]
     out["served"] = served
     if control:
-        lower = check.control_answers(Reference(m, w, precision="tf32"),
-                                      answers)
+        lower = check.control_answers(
+            cell.arch.Reference(m, w, precision="tf32"), answers)
         c_served = check.measure(want, lower)
         c_ok, c_checks = check.judge(dict(values, **c_served), limits)
         out["control"] = {"correct": c_ok, "served": c_served,
@@ -478,7 +519,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         out["token_altered"] = check.measure(
             want, [(p, [(t + 1) % V for t in s], r) for p, s, r in answers])
     out["checks"] = checks
-    return out
+    return out, record
 
 
 def forbidden_modules() -> List[str]:

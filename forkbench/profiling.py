@@ -119,12 +119,13 @@ def _host_op(host, starts, t) -> str:
     return best or "python"
 
 
-def summarize(prof, labels_of) -> dict:
-    """The traced sub-window: its length, the device's busy time, device
-    seconds by category in each invocation's fork and serve spans, the
-    device ops that took most time and the idle gaps by what the host was
-    doing.  ``labels_of``: invocation index -> label suffix."""
-    labels, dev, host = raw_events(prof)
+def summarize(raw, labels_of) -> dict:
+    """The traced sub-window of ``raw`` (``raw_events``): its length, the
+    device's busy time, device seconds by category in each invocation's
+    fork and serve spans, the device ops that took most time and the idle
+    gaps by what the host was doing.  ``labels_of``: invocation index ->
+    label suffix."""
+    labels, dev, host = raw
     lo, hi = labels.get(LABEL + "profiled", (None, None))
     if lo is None:
         return {}

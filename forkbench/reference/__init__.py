@@ -1,2 +1,3 @@
-"""The benchmark's plain reference: the two block kinds of its cells, in
-plain PyTorch, float32.  It imports nothing of the program under test."""
+"""The benchmark's plain references, one module per architecture
+(``model.py``: ``gqa_moe``), in plain PyTorch, float32.  None imports
+anything of the program under test."""

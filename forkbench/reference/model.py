@@ -20,7 +20,11 @@ from its equations:
   token is ever dropped (``extend`` runs the served tokens without a
   capacity).
 
-Weights are the benchmark's nested dict (the layout of ``weights.py``).
+Weights are the benchmark's nested dict (the layout of ``weights.py``):
+groups of blocks, each block's leaves stacked over its group's repeats,
+run in the program's order (each group's unit of blocks, repeat after
+repeat); a block holding ``moe`` is a mixture, one holding ``mlp`` a
+dense MLP.
 ``precision="tf32"`` rounds both operands of every matrix product to
 TF32's 10-bit mantissa (round to nearest even) and accumulates in float32:
 the control that computes one precision below the configuration's.
@@ -49,7 +53,9 @@ class Reference:
         self.m = m
         self.w = w
         self.tf32 = precision == "tf32"
-        self.blk = w["groups"][0]["blocks"][0]
+        self.layers = [(blk, r) for g in w["groups"]
+                       for r in range(g["blocks"][0]["norm1"]["scale"].shape[0])
+                       for blk in g["blocks"]]
 
     def mm(self, a, b):
         if self.tf32:
@@ -71,10 +77,11 @@ class Reference:
         x1, x2 = x[..., :hd // 2], x[..., hd // 2:]
         return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
-    def attention(self, l, x, pos, cache):
-        """x (T, D) at positions ``pos``; ``cache`` (k, v) of the earlier
-        positions or None.  Returns the output and the new (k, v)."""
-        m, a = self.m, self.blk["attn"]
+    def attention(self, a, l, x, pos, cache):
+        """Attention of leaves ``a`` at layer ``l`` of their stack; x (T, D)
+        at positions ``pos``; ``cache`` (k, v) of the earlier positions or
+        None.  Returns the output and the new (k, v)."""
+        m = self.m
         T, D = x.shape
         H, K, hd = m["num_heads"], m["num_kv_heads"], m["head_dim"]
         q = self.mm(x, a["wq"][l].reshape(D, H * hd)).view(T, H, hd)
@@ -97,13 +104,12 @@ class Reference:
         o = o.transpose(0, 1).reshape(T, H * hd)
         return self.mm(o, a["wo"][l].reshape(H * hd, D)), (k, v)
 
-    def mlp(self, l, x):
-        p = self.blk["mlp"]
+    def mlp(self, p, l, x):
         h = F.silu(self.mm(x, p["wg"][l])) * self.mm(x, p["wi"][l])
         return self.mm(h, p["wd"][l])
 
-    def moe(self, l, x, capacity: bool):
-        m, p = self.m, self.blk["moe"]
+    def moe(self, p, l, x, capacity: bool):
+        m = self.m
         T = x.shape[0]
         E, k = m["moe_experts"], m["moe_topk"]
         probs = torch.softmax(self.mm(x, p["router"][l]), dim=-1)
@@ -126,17 +132,18 @@ class Reference:
     # -- the model ------------------------------------------------------------
 
     def _run(self, tokens, pos, caches, capacity):
-        m, b = self.m, self.blk
+        m = self.m
         h = self.w["embed"]["tok"][tokens]
         new = []
-        for l in range(m["num_layers"]):
-            a, kv = self.attention(l, self.norm(h, b["norm1"]["scale"][l]),
-                                   pos, caches[l] if caches else None)
+        for i, (b, l) in enumerate(self.layers):
+            a, kv = self.attention(b["attn"], l,
+                                   self.norm(h, b["norm1"]["scale"][l]),
+                                   pos, caches[i] if caches else None)
             new.append(kv)
             h = h + a
             hn = self.norm(h, b["norm2"]["scale"][l])
-            h = h + (self.moe(l, hn, capacity) if m["moe_experts"]
-                     else self.mlp(l, hn))
+            h = h + (self.moe(b["moe"], l, hn, capacity) if "moe" in b
+                     else self.mlp(b["mlp"], l, hn))
         h = self.norm(h, self.w["final_norm"]["scale"])
         head = (self.w["embed"]["tok"].t() if m["tie_embeddings"]
                 else self.w["embed"]["out"])

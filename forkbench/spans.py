@@ -1,25 +1,31 @@
 """The program's own spans and counters (``repro_torch.tracing``) in a
-traced run of a cell: a run of the harness with the tracer on through the
-window, and the per-layer numbers read from what it recorded.
+traced run of a cell, and the per-layer readings taken from them.
+
+The harness keeps them: a ``--trace 1`` window turns the tracer on as its
+profiled sub-window opens and off as it closes, and its record
+(``harness.Run``) holds the spans, the counters, the sub-window's device
+events and bounds, and the forks the tracer saw.  The metric readers
+(``forkbench/metrics/<reading>.<cell kind>.py``) call ``readings``.
+
+Run as a script, this reports more than the metrics do, and measures the
+tracer's cost:
 
   python3 forkbench/spans.py --workload stablelm-3b.coldstart \\
       --seed 7 8 --seconds 51 --tracer on off --out chiprun_out/spans.jsonl
 
-``--tracer on`` turns the tracer on as the window opens and off as it
-closes (after set-up, so the warm-up records nothing); ``off`` leaves it
-off; ``alternate`` turns it on for the window's odd invocations only, so
-that neighbouring invocations compare with it on and off.  The profiler
-runs as in any ``--trace 1`` run.  Each run (every seed with every
-tracer setting, in one process) prints a line of JSON on standard
-output: the harness's own result (``result``, whose ``breakdown`` names
-the device's idle gaps by the host's innermost op, ``repro.*`` ranges
-among them), and ``spans``: the readings below, each invocation's
-account, the device's idle time by the program's innermost span
-(``idle_by_span``), and how far the spans lie from their profiler events.
+``--tracer on`` is the benchmark's traced run; ``off`` leaves the tracer
+off (the profiler runs as in any traced run), so that runs in turns give
+the tracer's cost.  Each run (every seed with every tracer
+setting, in one process) prints a line of JSON on standard output: the
+harness's own result (``result``, whose ``breakdown`` names the device's
+idle gaps by the host's innermost op, ``repro.*`` ranges among them), and
+``spans``: the readings below, each invocation's account and the
+device's idle time by the program's innermost span (``idle_by_span``).
 The tracer's ranges put nothing on the device's timeline, so the
 harness's ``busy_s`` means the same with it on.
 
-Readings (``readings``), each over the window's invocations:
+Readings (``readings``), each over the profiled sub-window's
+invocations:
 
 - ``resume_s``: the mean ``fork.resume`` span of a fork;
 - ``wire_read_s``, ``adopt_s``: per fork, the summed ``net.read_pages``
@@ -27,70 +33,34 @@ Readings (``readings``), each over the window's invocations:
   there: the copy to numpy, and the upload of the host payload);
 - ``staged_gb``: per fork, the bytes copied through host memory in both
   directions (``stage.dtoh_bytes.*`` and ``stage.htod_bytes``), in 1e9;
-- ``decode_gap_ms``: inside the profiled sub-window, the mean time of a
-  ``serve.decode`` span in which the device ran nothing;
+- ``decode_gap_ms``: the mean time of a ``serve.decode`` span in which
+  the device ran nothing;
 - ``moe_useful_pct``: ``moe.routed_rows`` over ``moe.expert_rows``.
 
-A reading with nothing to read (no fork, no MoE layer) is left out.
+A reading with nothing to read (no fork, no MoE layer, no device events)
+is left out.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import sys
 from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import List
 
 if __package__ in (None, ""):                 # run as a script
     from run import ROOT, _environment
 else:
     from forkbench.run import ROOT, _environment
 
-PREFIX = "repro."                 # repro_torch.tracing.PREFIX
 FORK_PARTS = ("fork.resume", "instance.fault", "pool.assemble")
 SERVE_PARTS = ("serve.prefill", "serve.decode")
 
 
 # ---------------------------------------------------------------------------
-# the profiler's events
+# the readings
 # ---------------------------------------------------------------------------
-
-
-def clock_error(prof, spans, bounds) -> Optional[dict]:
-    """How far each span's start and end lie from those of its ``repro.*``
-    host event (the k-th span of a name against the k-th event of that
-    name, both in time order), over the profiled sub-window ``bounds``: the
-    worst and the median in ns, and the five worst as [name, k, start
-    error, end error].  None where the spans and the events do not pair
-    up."""
-    from forkbench import profiling
-    lo, hi = bounds
-    inside = lambda a, b: lo <= a and b <= hi
-    events = defaultdict(list)
-    for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        if name.startswith(PREFIX) and not profiling._is_device(e):
-            s = profiling._ns(e, "start")
-            if inside(s, s + e.duration_ns()):
-                events[name[len(PREFIX):]].append((s, s + e.duration_ns()))
-    events.pop("enable", None)           # the tracer's own warm-up range
-    mine = defaultdict(list)
-    for s in spans:
-        if s.end_ns is not None and inside(s.start_ns, s.end_ns):
-            mine[s.name].append((s.start_ns, s.end_ns))
-    if not events or set(events) != set(mine):
-        return None
-    rows = []
-    for name, evs in events.items():
-        if len(mine[name]) != len(evs):
-            return None
-        for k, ((a, b), (c, d)) in enumerate(zip(mine[name], sorted(evs))):
-            rows.append([name, k, a - c, b - d])
-    worst = lambda r: max(abs(r[2]), abs(r[3]))
-    rows.sort(key=worst, reverse=True)
-    errs = sorted(worst(r) for r in rows)
-    return {"worst_ns": errs[-1], "median_ns": errs[len(errs) // 2],
-            "pairs": len(rows), "top": rows[:5]}
 
 
 def idle_by_span(dev, bounds, spans) -> List[list]:
@@ -128,21 +98,22 @@ def idle_by_span(dev, bounds, spans) -> List[list]:
     return [[n, v] for n, v in sorted(out.items(), key=lambda kv: -kv[1])]
 
 
-# ---------------------------------------------------------------------------
-# the readings
-# ---------------------------------------------------------------------------
+def _idle_ns(gaps, starts, a: int, b: int) -> int:
+    """Nanoseconds of [a, b] that the sorted, disjoint idle stretches
+    ``gaps`` (their starts ``starts``) cover."""
+    k = max(bisect.bisect_right(starts, a) - 1, 0)
+    total = 0
+    while k < len(gaps) and gaps[k][0] < b:
+        total += max(0, min(gaps[k][1], b) - max(gaps[k][0], a))
+        k += 1
+    return total
 
 
-def _union_ns(dev, lo, hi) -> int:
+def readings(run) -> dict:
+    """The per-layer readings of the module docstring from a traced run's
+    record (``harness.Run``)."""
     from forkbench import profiling
-    return profiling._union(dev, lo, hi)
-
-
-def readings(spans, counters, forks: int, dev=None, bounds=None) -> dict:
-    """The per-layer readings of the module docstring; ``forks`` the
-    window's forks, ``dev`` the device events (``profiling.raw_events``) and
-    ``bounds`` the profiled sub-window, for ``decode_gap_ms`` (read only
-    where the profiler saw the device)."""
+    spans, counters, forks = run.spans, run.counters, run.forks_traced
     out = {}
     total = lambda name: sum(s.seconds for s in spans if s.name == name)
     if forks:
@@ -154,34 +125,35 @@ def readings(spans, counters, forks: int, dev=None, bounds=None) -> dict:
         staged = sum(v for k, v in counters.items()
                      if k.startswith("stage."))
         out["staged_gb"] = staged / forks / 1e9
-    if dev and bounds is not None:
-        lo, hi = bounds
-        gaps = [s.end_ns - s.start_ns - _union_ns(dev, s.start_ns, s.end_ns)
-                for s in spans if s.name == "serve.decode"
+    if run.device_events and run.profiled is not None:
+        lo, hi = run.profiled
+        gaps = profiling._gaps(run.device_events, lo, hi)
+        starts = [a for a, _ in gaps]
+        idle = [_idle_ns(gaps, starts, s.start_ns, s.end_ns) for s in spans
+                if s.name == "serve.decode" and s.end_ns is not None
                 and lo <= s.start_ns and s.end_ns <= hi]
-        if gaps:
-            out["decode_gap_ms"] = sum(gaps) / len(gaps) / 1e6
+        if idle:
+            out["decode_gap_ms"] = sum(idle) / len(idle) / 1e6
     if counters.get("moe.expert_rows"):
         out["moe_useful_pct"] = (100.0 * counters["moe.routed_rows"]
                                  / counters["moe.expert_rows"])
     return out
 
 
-def accounts(invs, requests: Dict[int, int], spans) -> List[dict]:
+def accounts(run) -> List[dict]:
     """Each invocation the tracer saw: its index, the harness's ``fork_s``
     and ``serve_s``, the ``invoke`` and ``release`` spans, the seconds of
     each part of the fork and of serving (spans directly under
     ``invoke``), and the share of ``fork_s`` and ``serve_s`` they cover."""
     rows = []
     by_request = defaultdict(list)
-    for k, s in enumerate(spans):
+    for k, s in enumerate(run.spans):
         if s.end_ns is not None:
             by_request[s.request].append((k, s))
-    for inv in invs:
-        r = requests.get(inv.index)
-        if r is None or inv.failed:
+    for inv in run.invocations:
+        if inv.request is None or inv.failed:
             continue
-        mine = by_request[r]
+        mine = by_request[inv.request]
         root = next(k for k, s in mine if s.name == "invoke")
         parts = defaultdict(float)
         for k, s in mine:
@@ -208,74 +180,23 @@ def accounts(invs, requests: Dict[int, int], spans) -> List[dict]:
 def run(cell, seed: int, seconds: float, device, t0: float,
         tracer: str = "on") -> dict:
     """One ``--trace 1`` run of ``cell`` by the harness, with the tracer
-    ``on``, ``off`` or on for the odd invocations (``alternate``) through
-    the window.  The harness has no hook for this: for the call its
-    ``window`` and ``profile`` are wrapped, to switch the tracer around
-    each invocation and keep the profiler.  Returns ``{"result": the
-    harness's result, "spans": what this module reads}``."""
-    from forkbench import harness, profiling
-    from repro_torch import tracing
-    kept = {}
-    real_window, real_profile = harness.window, harness.profile
-
-    def profile(*args, **kw):
-        kept["prof"] = real_profile(*args, **kw)
-        return kept["prof"]
-
-    def window(prog, reqs, mix, secs, trace, dev):
-        requests = kept["requests"] = {}
-        real_invoke = prog.invoke
-
-        def invoke(req, i, policy, due=None):
-            on = tracer == "on" or (tracer == "alternate" and i % 2 == 1)
-            if not on:
-                tracing.disable()
-            elif not tracing.enabled():
-                tracing.enable()
-            n = len(tracing.snapshot()["spans"])
-            inv = real_invoke(req, i, policy, due)
-            new = tracing.snapshot()["spans"][n:]
-            r = next((s.request for s in new if s.name == "invoke"), None)
-            if r is not None:
-                requests[i] = r
-            return inv
-        prog.invoke = invoke
-        tracing.reset()
-        try:
-            out = real_window(prog, reqs, mix, secs, trace, dev)
-        finally:
-            tracing.disable()
-            del prog.invoke
-        kept["snap"] = tracing.snapshot()
-        kept["invs"] = out[0]
-        tracing.reset()
-        return out
-
-    harness.window, harness.profile = window, profile
-    try:
-        result = harness.run(cell, seed, seconds, True, device, t0)
-    finally:
-        harness.window, harness.profile = real_window, real_profile
-    spans, counters = kept["snap"]["spans"], kept["snap"]["counters"]
-    invs, prof = kept["invs"], kept.get("prof")
-    forks = sum(1 for v in invs if v.forked and v.index in kept["requests"])
-    bounds = dev = None
-    if prof is not None:
-        labels, dev, _ = profiling.raw_events(prof)
-        bounds = labels.get(profiling.LABEL + "profiled")
-    rows = accounts(invs, kept["requests"], spans)
+    ``on`` or ``off`` in the profiled sub-window.  Returns ``{"result":
+    the harness's result, "spans": what this module reads}``."""
+    from forkbench import harness
+    result, rec = harness.run_record(cell, seed, seconds, True, device, t0,
+                                     tracer=tracer == "on")
+    rows = accounts(rec)
     return {"result": result, "spans": {
-        "tracer": tracer, "n_spans": len(spans), "counters": counters,
-        "readings": readings(spans, counters, forks, dev, bounds),
+        "tracer": tracer, "n_spans": len(rec.spans), "counters": rec.counters,
+        "readings": readings(rec),
         "invocations": rows,
         "fork_cover_min": min((r["fork_cover"] for r in rows
                                if "fork_cover" in r), default=None),
         "serve_cover_min": min((r["serve_cover"] for r in rows),
                                default=None),
-        "idle_by_span": idle_by_span(dev, bounds, spans)
-        if dev and bounds is not None else [],
-        "clock": clock_error(prof, spans, bounds)
-        if bounds is not None else None}}
+        "idle_by_span": idle_by_span(rec.device_events, rec.profiled,
+                                     rec.spans)
+        if rec.device_events and rec.profiled is not None else []}}
 
 
 def main(argv=None) -> int:
@@ -286,7 +207,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, nargs="+", required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--tracer", nargs="+", default=["on"],
-                    choices=("on", "off", "alternate"))
+                    choices=("on", "off"))
     ap.add_argument("--out", default=None,
                     help="also append each line to this file")
     args = ap.parse_args(argv)

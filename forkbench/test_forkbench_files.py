@@ -1,37 +1,19 @@
 """BENCHMARK.json against the benchmark's contract, every file a cell or
-metric names, the traffic generator's seeds, and the frozen arithmetic
-against the program's own counts."""
+metric names, each configuration against its source's published keys
+(``forkbench/sources/<config>.json``), the traffic generator's seeds, and
+the frozen arithmetic against the program's own counts."""
 import json
 import re
 
 import pytest
 
-from forkbench import roofline, traffic
+from forkbench import harness, roofline, traffic
 from forkbench import weights as W
 from forkbench.conftest import BENCH, ROOT
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 BENCHJ = json.loads((ROOT / "BENCHMARK.json").read_text())
-# the published config.json of each source, its keys that give a shape
-PUBLISHED = {
-    "https://huggingface.co/stabilityai/stablelm-3b-4e1t/blob/main/"
-    "config.json": {
-        "hidden_act": "silu", "hidden_size": 2560, "intermediate_size": 6912,
-        "max_position_embeddings": 4096, "norm_eps": 1e-05,
-        "num_attention_heads": 32, "num_hidden_layers": 32,
-        "num_key_value_heads": 32, "rope_pct": 0.25, "rope_theta": 10000,
-        "tie_word_embeddings": False, "use_qkv_bias": False,
-        "vocab_size": 50304},
-    "https://huggingface.co/mistralai/Mixtral-8x7B-v0.1/blob/main/"
-    "config.json": {
-        "hidden_act": "silu", "hidden_size": 4096, "intermediate_size": 14336,
-        "max_position_embeddings": 32768, "model_type": "mixtral",
-        "num_attention_heads": 32, "num_experts_per_tok": 2,
-        "num_hidden_layers": 32, "num_key_value_heads": 8,
-        "num_local_experts": 8, "rms_norm_eps": 1e-05,
-        "rope_theta": 1000000.0, "sliding_window": None,
-        "tie_word_embeddings": False, "vocab_size": 32000}}
 WIDTHS = re.compile(r"(_dim|_rank)$|hidden_size|intermediate_size|"
                     r"num_experts_per_tok|head")
 
@@ -68,28 +50,48 @@ def test_benchmark_json_keeps_the_contract():
     for w in b["workloads"]:
         assert w["chips"] == 1 and len(w["why"]) <= 200
         assert (BENCH / "traffic" / f"{w['traffic']}.json").exists()
-        layer = [m for m in b["per_layer"]
-                 if w["name"] in m.get("workloads", [w["name"]])]
-        ends = [m for m in b["end_to_end"]
-                if w["name"] in m.get("workloads", [w["name"]])]
+        ends, layer = harness.cell_metrics(b, w["name"])
         assert layer and len(ends) >= 2
         for m in layer:
             assert m["moves"] in {e["name"] for e in ends}
     for m in b["end_to_end"] + b["per_layer"]:
         assert set(m.get("workloads", [])) <= cells
+    # a per-layer metric named for a traffic mix, with no list of its own,
+    # is the metric of every cell of that mix and of no other
+    mixes = {w["traffic"] for w in b["workloads"]}
+    for m in b["per_layer"]:
+        kind = m["name"].rsplit(".", 1)[-1]
+        if "workloads" not in m and kind in mixes:
+            assert {w["name"] for w in b["workloads"]
+                    if m in harness.cell_metrics(b, w["name"])[1]} == {
+                w["name"] for w in b["workloads"] if w["traffic"] == kind}
+
+
+def config_contract(root, bench: dict, conf: dict) -> None:
+    """A configuration entry of ``bench`` (the root ``root``'s) against
+    the contract: its file lies in the configs and holds its source and
+    its cuts, a cell uses it, ``reduced`` names no width, and the keys it
+    changed from its source's published config
+    (``forkbench/sources/<config>.json``, found by name) are exactly
+    ``reduced``."""
+    bench_dir = root / BENCH.name
+    path = root / conf["file"]
+    assert path.parent == bench_dir / "configs" and path.stem == conf["name"]
+    f = json.loads(path.read_text())
+    assert f["source"] == conf["source"] and f["reduced"] == conf["reduced"]
+    assert any(w["config"] == conf["name"] for w in bench["workloads"])
+    assert not [k for k in conf["reduced"] if WIDTHS.search(k)]
+    published = json.loads((bench_dir / "sources"
+                            / f"{conf['name']}.json").read_text())
+    assert published["source"] == conf["source"]
+    source = published["config"]
+    changed = {k for k, v in source.items() if f.get(k, "absent") != v}
+    assert changed == set(conf["reduced"])
 
 
 @pytest.mark.parametrize("conf", BENCHJ["configs"], ids=lambda c: c["name"])
 def test_each_config_file_names_its_source_and_cuts(conf):
-    path = ROOT / conf["file"]
-    assert path.parent == BENCH / "configs" and path.stem == conf["name"]
-    f = json.loads(path.read_text())
-    assert f["source"] == conf["source"] and f["reduced"] == conf["reduced"]
-    assert any(w["config"] == conf["name"] for w in BENCHJ["workloads"])
-    assert not [k for k in conf["reduced"] if WIDTHS.search(k)]
-    source = PUBLISHED[conf["source"]]
-    changed = {k for k, v in source.items() if f.get(k, "absent") != v}
-    assert changed == set(conf["reduced"])
+    config_contract(ROOT, BENCHJ, conf)
 
 
 def test_a_seed_orders_the_same_work():
@@ -112,7 +114,6 @@ def test_a_seed_orders_the_same_work():
 
 @pytest.mark.parametrize("conf", BENCHJ["configs"], ids=lambda c: c["name"])
 def test_frozen_counts_equal_the_programs(conf):
-    from forkbench import harness
     from repro_torch.models import flops
     f = json.loads((ROOT / conf["file"]).read_text())
     total, active, embed = flops.param_counts(harness.port_config(f))

@@ -4,6 +4,7 @@ found by name; and with the timed path broken underneath, ``correct``
 comes out false."""
 import json
 import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -37,8 +38,7 @@ def test_a_run_prints_a_well_formed_last_line(tiny_root, cell, trace, capsys):
         assert f"check {name}: {c['value']!r} (limit {c['limit']!r})" in said
         assert c["value"] <= c["limit"]
     bench = json.loads((tiny_root / "BENCHMARK.json").read_text())
-    want = {m["name"] for m in bench["per_layer" if trace else "end_to_end"]
-            if cell in m.get("workloads", [cell])}
+    want = {m["name"] for m in harness.cell_metrics(bench, cell)[trace]}
     got = set(line["metrics"])
     assert got <= want
     host = {m["name"] for m in bench["end_to_end"] + bench["per_layer"]
@@ -53,13 +53,75 @@ def test_a_run_prints_a_well_formed_last_line(tiny_root, cell, trace, capsys):
         assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
-def test_new_files_are_found_by_name(tiny_root):
-    """A configuration, a traffic mix and a metric added as files, and
-    named in BENCHMARK.json, run with no other edit."""
+TWO_GROUPS = '''"""A test architecture: gqa_moe's block in two groups, one block
+repeated once, then a unit of two blocks repeated twice."""
+import dataclasses
+import importlib.util
+from pathlib import Path
+
+from forkbench.archs import gqa_moe
+from forkbench.archs.gqa_moe import block_leaves
+# the checks and the counts are gqa_moe's: every layer is its block
+from forkbench.archs.gqa_moe import (  # noqa: F401
+    attention_bytes, block_params, check_config, decode_work, prefill_work,
+    state_bytes)
+
+_path = Path(__file__).parents[1] / "reference" / "two_groups.py"
+_spec = importlib.util.spec_from_file_location("two_groups_reference", _path)
+_ref = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_ref)
+Reference = _ref.Reference
+
+
+def port_config(conf):
+    from repro_torch.configs.base import AttnSpec, GroupSpec
+    return dataclasses.replace(gqa_moe.port_config(conf), groups=(
+        GroupSpec(unit=(AttnSpec(),), repeat=1),
+        GroupSpec(unit=(AttnSpec(), AttnSpec()), repeat=2)))
+
+
+def leaves(m):
+    assert m["num_layers"] == 5
+    D, V = m["d_model"], m["vocab_size"]
+    return ([(("embed", "tok"), (V, D), 0.02),
+             (("embed", "out"), (D, V), D ** -0.5)]
+            + block_leaves(m, ("groups", "0", "blocks", "0"), 1)
+            + block_leaves(m, ("groups", "1", "blocks", "0"), 2)
+            + block_leaves(m, ("groups", "1", "blocks", "1"), 2)
+            + [(("final_norm", "scale"), (D,), 0.1)])
+'''
+
+
+def test_new_files_are_found_by_name(tiny_root, monkeypatch):
+    """A configuration of a new architecture (its module and its own copy
+    of the reference) from a new source (its published keys), a traffic
+    mix and a metric added as files, and named in BENCHMARK.json, keep the
+    contract and run with no other edit; the per-layer metrics of the
+    mix they share come with them."""
+    import shutil
+    import sys
+    from forkbench import archs, roofline
+    from forkbench import weights as W
+    from forkbench.test_forkbench_files import config_contract
     b = tiny_root / "forkbench"
+    (b / "archs").mkdir()
+    (b / "archs" / "two_groups.py").write_text(TWO_GROUPS)
+    (b / "reference").mkdir()
+    shutil.copy(Path(archs.__file__).parents[1] / "reference" / "model.py",
+                b / "reference" / "two_groups.py")
+    monkeypatch.delitem(sys.modules, "forkbench.archs.two_groups",
+                        raising=False)
+    source = "https://example.org/tiny-deep/config.json"
+    published = {"hidden_size": 64, "num_attention_heads": 4,
+                 "num_hidden_layers": 10, "vocab_size": 256}
+    (b / "sources").mkdir()
+    (b / "sources" / "tiny-deep.json").write_text(json.dumps(
+        {"source": source, "config": published}))
     conf = json.loads((b / "configs" / "tiny-dense.json").read_text())
     conf["name"] = conf["port"]["name"] = "tiny-deep"
-    conf["model"]["num_layers"] = 3
+    conf["model"].update(num_layers=5, arch="two_groups")
+    conf.update(published, num_hidden_layers=5, source=source,
+                reduced=["num_hidden_layers"])
     (b / "configs" / "tiny-deep.json").write_text(json.dumps(conf))
     mix = json.loads((b / "traffic" / "coldstart.json").read_text())
     mix["output"].update(min=1, max=1)
@@ -68,19 +130,39 @@ def test_new_files_are_found_by_name(tiny_root):
         "def read(run):\n"
         "    return float(sum(len(v.tokens) for v in run.ok))\n")
     bench = json.loads((tiny_root / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": "tiny-deep", "source": "tiny",
+    bench["configs"].append({"name": "tiny-deep", "source": source,
                              "file": "forkbench/configs/tiny-deep.json",
-                             "reduced": [], "why": "a CPU test"})
-    bench["workloads"].append({"name": "tiny-deep.one-token",
-                               "config": "tiny-deep", "traffic": "one-token",
-                               "chips": 1, "why": "a CPU test"})
+                             "reduced": ["num_hidden_layers"],
+                             "why": "a CPU test"})
+    bench["workloads"] += [
+        {"name": "tiny-deep.one-token", "config": "tiny-deep",
+         "traffic": "one-token", "chips": 1, "why": "a CPU test"},
+        {"name": "tiny-deep.coldstart", "config": "tiny-deep",
+         "traffic": "coldstart", "chips": 1, "why": "a CPU test"}]
     bench["end_to_end"].append({"name": "tokens_served", "unit": "tokens",
                                 "better": "higher", "bound": 0.25,
                                 "source": "host_clock",
                                 "workloads": ["tiny-deep.one-token"]})
+    invoke_s = next(m for m in bench["end_to_end"] if m["name"] == "invoke_s")
+    invoke_s["workloads"].append("tiny-deep.coldstart")
     (tiny_root / "BENCHMARK.json").write_text(json.dumps(bench))
+    config_contract(tiny_root, bench, bench["configs"][-1])
+    e2e, layer = harness.cell_metrics(bench, "tiny-deep.coldstart")
+    assert {m["name"] for m in layer} == {
+        m["name"] for m in harness.cell_metrics(
+            bench, "tiny-dense.coldstart")[1]}
+    cell = harness.load_cell(tiny_root, "tiny-deep.one-token")
+    assert Path(cell.arch.__file__) == b / "archs" / "two_groups.py"
+    assert Path(cell.arch._ref.__file__) == b / "reference" / "two_groups.py"
+    cfg = harness.port_config(conf)
+    assert [(len(g.unit), g.repeat) for g in cfg.groups] == [(1, 1), (2, 2)]
+    w = W.make(conf["model"], SEED, "cpu")
+    assert [len(g["blocks"]) for g in w["groups"]] == [1, 2]
+    assert W.param_count(conf["model"]) == roofline.state_bytes(
+        conf["model"]) // 4
     out = run_cell(tiny_root, "tiny-deep.one-token")
     assert out["correct"]
+    assert out["checks"]["fork_mismatch"]["value"] == 0
     # max_tokens 1: the prefill's token, and one decode step past it
     assert out["metrics"]["tokens_served"]["value"] == 2 * out["attempted"]
     assert "setup_s" in out["metrics"] and "invoke_s" not in out["metrics"]
@@ -141,7 +223,8 @@ def test_the_control_fails_the_limit(tiny_root, cell):
 
 @pytest.mark.card
 @pytest.mark.parametrize("cell", ["stablelm-3b.coldstart",
-                                  "mixtral-8x7b-2L.warm"])
+                                  "mixtral-8x7b-2L.warm",
+                                  "mixtral-8x7b-2L.coldstart"])
 def test_a_cell_is_correct_on_the_card(cuda, cell):
     from forkbench.conftest import ROOT
     out = harness.run(harness.load_cell(ROOT, cell), SEED, 10.0, False, cuda,

@@ -1,8 +1,11 @@
 """The program's spans read in tiny traced runs on the CPU
-(``forkbench/spans.py``): the fork's readings and the MoE counter read a
-value with the tracer on, nothing is recorded with it off, and the
-device's idle time goes to the innermost span; on the card, the tracer's
-ranges put nothing on the device's timeline."""
+(``forkbench/spans.py``): a traced run's record holds them and the
+metrics that read them print a value, the fork's readings and the MoE
+counter read a value with the tracer on, nothing is recorded with it off
+or in an untraced run, and the device's idle time goes to the innermost
+span; on the card, the tracer's ranges put nothing on the device's
+timeline."""
+import json
 import time
 
 import pytest
@@ -13,10 +16,13 @@ from forkbench.conftest import CELLS
 
 SEED = 2 ** 31 + 29
 FORK_READINGS = {"resume_s", "wire_read_s", "adopt_s", "staged_gb"}
+PROFILED = [1, 2]            # the tiny mixes' profiled invocations
 
 
 def traced(root, cell, tracer):
-    return spans.run(harness.load_cell(root, cell), SEED, 0.6,
+    # a window long enough to reach the profiled invocations (the second
+    # and third, the tiny mixes' ``profile``) on a loaded CPU
+    return spans.run(harness.load_cell(root, cell), SEED, 3.0,
                      torch.device("cpu"), time.perf_counter(), tracer)
 
 
@@ -39,7 +45,10 @@ def test_tracer_on_the_readings_read_a_value(tiny_root, cell):
         assert not [k for k in got["counters"] if k.startswith("stage.")]
     assert got["n_spans"] > 0 and got["serve_cover_min"] > 0
     assert "decode_gap_ms" not in r        # the CPU profiler sees no device
-    assert len(got["invocations"]) == out["result"]["attempted"]
+    # only the profiled sub-window is traced: those of its invocations the
+    # window reached on this CPU
+    reached = [i for i in PROFILED if i < out["result"]["attempted"]]
+    assert reached and [r["index"] for r in got["invocations"]] == reached
 
 
 def test_tracer_off_records_nothing(tiny_root):
@@ -48,6 +57,63 @@ def test_tracer_off_records_nothing(tiny_root):
     got = out["spans"]
     assert got["n_spans"] == 0 and got["counters"] == {}
     assert got["readings"] == {} and got["invocations"] == []
+
+
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_a_traced_runs_record_holds_the_programs_spans(tiny_root, cell):
+    """The record keeps the profiled sub-window's spans and counters, and
+    nothing of the invocations around it, and every per-layer metric that
+    reads them prints a value in its cells (but ``decode_gap_ms``, which
+    needs the device's events)."""
+    out, rec = harness.run_record(harness.load_cell(tiny_root, cell), SEED,
+                                  3.0, True, torch.device("cpu"),
+                                  time.perf_counter())
+    assert out["correct"] is True
+    assert rec.spans and rec.counters and rec.profiled is not None
+    assert {s.name for s in rec.spans} >= {"invoke", "release",
+                                            "serve.prefill", "serve.decode"}
+    reached = [i for i in PROFILED if i < out["attempted"]]
+    assert reached
+    assert [v.request for v in rec.invocations] == [
+        reached.index(v.index) if v.index in reached else None
+        for v in rec.invocations]
+    assert rec.forks_traced == (len(reached) if "coldstart" in cell
+                                else 0)
+    bench = json.loads((tiny_root / "BENCHMARK.json").read_text())
+    want = {m["name"] for m in harness.cell_metrics(bench, cell)[1]
+            if m["source"] in ("program_span", "program_counter")
+            and not m["name"].startswith("decode_gap_ms.")}
+    assert want and want <= set(out["metrics"])
+    assert all(out["metrics"][k]["value"] > 0 for k in want)
+
+
+def test_an_untraced_run_never_turns_the_tracer_on(tiny_root, monkeypatch):
+    from repro_torch import tracing
+
+    def enable():
+        raise AssertionError("the tracer was turned on")
+    monkeypatch.setattr(tracing, "enable", enable)
+    out, rec = harness.run_record(
+        harness.load_cell(tiny_root, "tiny-moe.coldstart"), SEED, 0.6, False,
+        torch.device("cpu"), time.perf_counter())
+    assert out["correct"] is True and not tracing.enabled()
+    assert rec.spans == [] and rec.counters == {} and rec.forks_traced == 0
+    assert all(v.request is None for v in rec.invocations)
+
+
+def test_decode_gap_is_the_idle_time_inside_decode_spans():
+    from repro_torch.tracing import Span
+    decode = [Span("serve.decode", a, -1, 0, {}) for a in
+              (10_000, 70_000, 95_000)]
+    for s, end in zip(decode, (60_000, 80_000, 120_000)):
+        s.end_ns = end
+    rec = harness.Run("c", {}, {}, 1, 1.0, 0.0, 1.0, 0, [], spans=decode,
+                      device_events=[(20_000, 30_000, "gemv"),
+                                     (40_000, 50_000, "paged_attention"),
+                                     (75_000, 90_000, "gemv")],
+                      profiled=(0, 100_000))
+    # 10-20, 30-40, 50-60 and 70-75 idle; the third span leaves the window
+    assert spans.readings(rec) == {"decode_gap_ms": pytest.approx(0.0175)}
 
 
 def test_idle_gaps_go_to_the_innermost_program_span():
