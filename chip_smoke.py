@@ -33,6 +33,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    path they replaced), time the four copy wrappers and the library
    calls from the host at the replay's shapes in turns, and split one
    long sequence's attention into the device time of its two kernels;
+   then hold the latent attention kernel (``kernels/paged_attention/
+   latent.py``, which replaces no TPU kernel) against its plain version
+   at the moonlight cell's shapes (16 heads, rows of 576, values of 512,
+   contexts of 256 to 4,128 tokens, a batch of three, a zero length),
+   within 3e-5, its launch counted, timed like the others
+   (``latent_attention_cases``, ``run_latent_case``);
 4. run the port's serve path (``repro_torch.launch.serve.main``) for
    gemma3-1b at full width: 3 nodes, a seed packed on node0, two children
    forked over the modelled RDMA network, 4 requests and the
@@ -1060,6 +1066,74 @@ def attention_kernel_split(torch, reps: int = 20) -> dict:
     if len(split) != 2:
         raise AssertionError(f"profiler saw {split}, not both kernels")
     return split
+
+
+def latent_attention_cases():
+    """(label, lengths per sequence) at the moonlight cell's shapes: 16
+    heads, latent rows of 576 floats (512 of latent, 64 of rope key),
+    values of 512, pages of 16 tokens, fp32: one sequence of 256, 1,024
+    and 4,128 tokens (the cell's batch of one, its shortest, median and
+    longest contexts), a batch of three, and a zero length beside one
+    token (zeros)."""
+    return [("moonlight-256", [256]), ("moonlight-1024", [1024]),
+            ("moonlight-4128", [4128]), ("batch-of-3", [300, 17, 2049]),
+            ("empty-and-one", [0, 1])]
+
+
+def run_latent_case(torch, case):
+    """The latent kernel against its plain version on one case of
+    ``latent_attention_cases``, with its launch counted, its split count,
+    its times and its bound (every row in range read once, the queries
+    read and the outputs written; 2 * H * (R + dv) flops a token)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.paged_attention import kernel, latent, plan
+    label, lens = case
+    H, R, dv, Tp = 16, 576, 512, 16
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    B = len(lens)
+    P = max(-(-n // Tp) for n in lens) + 1           # one padded column
+    F = B * P + 8
+    q = torch.randn(B, H, R, device=dev)
+    pool = torch.randn(F, Tp, R, device=dev)
+    pt = torch.from_numpy(rng.permutation(F)[:B * P].reshape(B, P)
+                          .astype(np.int32)).to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def call(backend):
+        return latent.latent_attention(q, pool, pt, lengths, dv=dv,
+                                       scale=192 ** -0.5, backend=backend)
+    before = dispatch.launches["latent_attention"]
+    got = call("kernel")
+    if dispatch.launches["latent_attention"] != before + 1:
+        raise AssertionError(f"latent_attention/{label}: launch not counted")
+    want = call("torch")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = ATTN_TOL["float32"]
+    if not err < tol:
+        raise AssertionError(f"latent_attention/{label}: max abs err {err} "
+                             f">= {tol}")
+    if lens[0] == 0 and got[0].any():
+        raise AssertionError(f"latent_attention/{label}: an empty sequence "
+                             f"is not zero")
+    splits, _ = plan.split_plan(B, 1, P, kernel.sm_count(dev))
+    tokens = sum(lens)
+    nbytes = latent.latent_bytes(lens, H, R, dv) + 4 * (B * P + B)
+    flops = 2 * H * (R + dv) * tokens
+    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
+    return {"name": "latent_attention", "case": label, "dtype": "float32",
+            "B": B, "H": H, "R": R, "dv": dv, "P": P, "splits": splits,
+            "tokens": tokens, "max_abs_err": err, "tol": tol,
+            "ms": time_ms(torch, lambda: call("kernel")),
+            "plain_ms": time_ms(torch, lambda: call("torch")),
+            "library_ms": None,
+            "device_ms": device_ms(torch, lambda: call("kernel"), 20),
+            "host_us": host_us(torch, lambda: call("kernel")),
+            "bound_ms": bound_s * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / FP32_FLOPS_PER_S else "operations"),
+            "bytes": nbytes, "flops": flops}
 
 
 # ---------------------------------------------------------------------------
@@ -2545,6 +2619,10 @@ def main() -> int:
             r = run_attention_case(torch, case, dtype)
             print("[smoke] kernel " + json.dumps(r))
             rows.append(r)
+    for case in latent_attention_cases():
+        r = run_latent_case(torch, case)
+        print("[smoke] kernel " + json.dumps(r))
+        rows.append(r)
     print("[smoke] paged_attention device us per call, by kernel, one "
           "fp32 sequence of 8,192 tokens (torch.profiler): "
           + json.dumps(attention_kernel_split(torch)))

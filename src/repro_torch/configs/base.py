@@ -57,6 +57,47 @@ class SLSTMSpec:
     shared: bool = False
 
 
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """A mixture of experts whose router scores each expert by a sigmoid
+    and picks the top-k of the scores plus a selection bias (DeepSeek-V3's
+    ``noaux_tc`` with one group), renormalises the chosen scores and
+    scales them by ``routed_scale``; beside the routed experts, every
+    token passes through one shared gated MLP of width ``shared_d_ff``
+    (the shared experts side by side).  Expert count, top-k, expert width
+    and capacity factor are the ArchConfig's ``moe_*``."""
+
+    routed_scale: float = 1.0
+    shared_d_ff: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MLASpec:
+    """Multi-head latent attention block (DeepSeek-V2/V3, pre-norm,
+    residual): keys and values come up from a normed latent of
+    ``kv_lora_rank`` per token, beside a rotary key of
+    ``qk_rope_head_dim`` that every head shares; queries are projected
+    whole (no query latent).  Followed by the MoE of ``moe`` or, where
+    ``moe`` is None, the dense gated MLP of ``cfg.d_ff``."""
+
+    kind: str = "mla"
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    moe: Optional[MoESpec] = None
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of one cached row: the normed latent, then the roped
+        shared key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
 BlockSpec = object  # union of the above
 
 
@@ -180,7 +221,7 @@ def _load_all():
     from repro_torch.configs import (  # noqa: F401
         stablelm_3b, gemma3_1b, granite_34b, qwen2_7b, zamba2_2_7b,
         kimi_k2_1t_a32b, moonshot_v1_16b_a3b, musicgen_large, xlstm_1_3b,
-        chameleon_34b, micro,
+        chameleon_34b, micro, moonlight_16b_a3b,
     )
 
 

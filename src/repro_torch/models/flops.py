@@ -8,7 +8,9 @@ MODEL_FLOPS convention used in EXPERIMENTS.md §Roofline:
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig, AttnSpec, MambaSpec, MLSTMSpec, SLSTMSpec, ShapeConfig
+from repro_torch.configs.base import (ArchConfig, AttnSpec, MambaSpec,
+                                      MLASpec, MLSTMSpec, SLSTMSpec,
+                                      ShapeConfig)
 
 
 def _attn_block_params(cfg: ArchConfig, spec: AttnSpec, active: bool):
@@ -26,6 +28,27 @@ def _attn_block_params(cfg: ArchConfig, spec: AttnSpec, active: bool):
     elif cfg.d_ff:
         n += cfg.d_model * cfg.d_ff * (3 if cfg.mlp_gated else 2) + d
     return n
+
+
+def _mla_block_params(cfg: ArchConfig, spec: MLASpec, active: bool):
+    d, h = cfg.d_model, cfg.num_heads
+    n = (d * h * spec.qk_head_dim + d * spec.latent_dim      # wq, wkv_a
+         + spec.kv_lora_rank                                 # kv_norm
+         + spec.kv_lora_rank * h * (spec.qk_nope_head_dim + spec.v_head_dim)
+         + h * spec.v_head_dim * d + d)                      # wo, norm1
+    if spec.moe is None:
+        return n + 3 * d * cfg.d_ff + d                      # dense, norm2
+    # experts, router and its bias, shared experts, norm2
+    e = cfg.moe_topk if active else cfg.moe_experts
+    return (n + e * 3 * d * cfg.moe_d_ff + d * cfg.moe_experts
+            + cfg.moe_experts + 3 * d * spec.moe.shared_d_ff + d)
+
+
+def _mla_attn_flops(cfg, spec, q_len, ctx) -> float:
+    """Scores over the query and rope dims, values over the value dims, of
+    ``q_len`` queries against ``ctx`` keys each (the expanded form)."""
+    return (2 * cfg.num_heads * (spec.qk_head_dim + spec.v_head_dim)
+            * q_len * ctx)
 
 
 def _mamba_block_params(cfg, spec):
@@ -61,6 +84,8 @@ def _slstm_block_params(cfg, spec):
 def block_params(cfg, spec, active=False):
     if isinstance(spec, AttnSpec):
         return _attn_block_params(cfg, spec, active)
+    if isinstance(spec, MLASpec):
+        return _mla_block_params(cfg, spec, active)
     if isinstance(spec, MambaSpec):
         return _mamba_block_params(cfg, spec)
     if isinstance(spec, MLSTMSpec):
@@ -109,6 +134,8 @@ def model_flops(cfg: ArchConfig, shape: ShapeConfig):
             if isinstance(spec, AttnSpec):
                 ctx = min(spec.window, S) if spec.window else S / 2
                 attn += 4 * cfg.num_heads * cfg.head_dim * S * ctx * B
+            elif isinstance(spec, MLASpec):
+                attn += _mla_attn_flops(cfg, spec, S, S / 2) * B
         return 2 * nonembed_active * tokens + attn + 2 * head * B
     # decode: one token per sequence
     attn = 0
@@ -116,4 +143,6 @@ def model_flops(cfg: ArchConfig, shape: ShapeConfig):
         if isinstance(spec, AttnSpec):
             ctx = min(spec.window, S) if spec.window else S
             attn += 4 * cfg.num_heads * cfg.head_dim * ctx * B
+        elif isinstance(spec, MLASpec):
+            attn += _mla_attn_flops(cfg, spec, 1, S) * B
     return 2 * nonembed_active * B + attn + 2 * head * B

@@ -1,5 +1,6 @@
 """Unified causal LM over the model families: attention (dense or MoE
-MLP), Mamba2, mLSTM and sLSTM blocks.
+MLP), latent attention (MLA, dense or MoE MLP per block), Mamba2, mLSTM
+and sLSTM blocks.
 
 Layer stacks are (unit pattern) x repeat groups (configs/base.py).  As in
 the reference, the params of each block position in a unit are stacked
@@ -31,10 +32,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import _dtypes
 from repro_torch.configs.base import (ArchConfig, AttnSpec, MambaSpec,
-                                      MLSTMSpec, SLSTMSpec)
+                                      MLASpec, MLSTMSpec, SLSTMSpec)
 from repro_torch.distributed import comm, ctx
 from repro_torch.distributed.sharding import model_partial
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
@@ -72,13 +74,52 @@ _RECURRENT = {
 def _family(spec):
     """The spec's recurrent family, or None for an attention block."""
     fam = _RECURRENT.get(type(spec))
-    if fam is None and not isinstance(spec, AttnSpec):
+    if fam is None and not isinstance(spec, (AttnSpec, MLASpec)):
         raise TypeError(spec)
     return fam
 
 
+def _init_mla_block(gen, cfg, spec, kw):
+    p = {"norm1": L.init_rms_norm(cfg.d_model, **kw),
+         "attn": MLA.init_mla(gen, cfg, spec, **kw),
+         "norm2": L.init_rms_norm(cfg.d_model, **kw)}
+    if spec.moe is not None:
+        p["moe"] = MOE.init_moe(gen, cfg, moe=spec.moe, **kw)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, True, **kw)
+    return p
+
+
+def _apply_mla_block(params, h, hn, cfg, spec, *, mode, positions, cache,
+                     pos, cache_len, q_chunk):
+    """An MLASpec block after its first norm: latent attention, then its
+    MoE or its dense MLP."""
+    cache_out = None
+    if mode == "train":
+        a = MLA.mla_train(params["attn"], hn, spec, cfg, positions, q_chunk)
+    elif mode == "prefill":
+        a, cache_out = MLA.mla_prefill(params["attn"], hn, spec, cfg,
+                                       positions, cache_len, q_chunk)
+    else:
+        a, cache_out = MLA.mla_decode(params["attn"], hn, spec, cfg, cache,
+                                      pos)
+    h = h + a
+    return h + mla_block_mlp(params, h, cfg, spec), cache_out
+
+
+def mla_block_mlp(params, h, cfg, spec):
+    """The MLP part of an MLASpec block on the residual ``h``: its MoE
+    (``spec.moe``) or its dense gated MLP."""
+    hn2 = L.rms_norm(h, params["norm2"]["scale"], cfg.norm_eps)
+    if spec.moe is not None:
+        return MOE.moe_mlp(params["moe"], hn2, cfg, moe=spec.moe)
+    return L.mlp(params["mlp"], hn2, True)
+
+
 def init_block(gen, cfg, spec, device=None, stack=None):
     kw = dict(device=device, stack=stack)
+    if isinstance(spec, MLASpec):
+        return _init_mla_block(gen, cfg, spec, kw)
     fam = _family(spec)
     if fam is not None:
         return {"norm1": L.init_rms_norm(cfg.d_model, **kw),
@@ -103,6 +144,10 @@ def apply_block(params, h, cfg, spec, *, mode, positions=None, cache=None,
                          f"{mode!r}")
     fam = _family(spec)
     hn = L.rms_norm(h, params["norm1"]["scale"], cfg.norm_eps)
+    if isinstance(spec, MLASpec):
+        return _apply_mla_block(params, h, hn, cfg, spec, mode=mode,
+                                positions=positions, cache=cache, pos=pos,
+                                cache_len=cache_len, q_chunk=q_chunk)
     cache_out = None
     if fam is not None:
         if mode == "decode":
@@ -137,6 +182,8 @@ def apply_block(params, h, cfg, spec, *, mode, positions=None, cache=None,
 
 
 def init_block_cache(cfg, spec, batch, cache_len, dtype, device=None):
+    if isinstance(spec, MLASpec):
+        return MLA.init_cache(cfg, spec, batch, cache_len, dtype, device)
     fam = _family(spec)
     if fam is None:
         return L.init_attn_cache(cfg, spec, batch, cache_len, dtype, device)

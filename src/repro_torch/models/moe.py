@@ -1,5 +1,13 @@
 """Top-k token-choice MoE with sort-based dispatch (capacity-dropping).
 
+The router is the reference's softmax top-k, or, for a block that brings
+a ``MoESpec`` (DeepSeek-V3's, Moonlight's), a sigmoid score with a
+selection bias (``_route``) and a shared gated MLP that every token
+passes through beside its routed experts (counted in
+``moe.shared_rows``).  The sigmoid router has no load-balance loss and no
+sharded layout: it raises under an env that splits the experts or the
+rows.
+
 ``moe_mlp`` dispatches as the reference's does: the GSPMD formulation
 (``_moe_mlp_gspmd``, dense batched products over an (E, C, D) dispatch
 buffer) unless the installed env asks for ``moe_impl="shardmap"``.
@@ -33,10 +41,12 @@ import torch.nn.functional as F
 from repro_torch import tracing
 from repro_torch.distributed import comm, ctx
 from repro_torch.distributed.sharding import moe_split
-from repro_torch.models.layers import _enter, _leave, ninit
+from repro_torch.models.layers import _enter, _leave, init_mlp, mlp, ninit
 
 
-def init_moe(gen, cfg, device=None, stack=None):
+def init_moe(gen, cfg, device=None, stack=None, moe=None):
+    """``moe``: a ``MoESpec`` adds the sigmoid router's selection bias and
+    the shared experts' MLP."""
     E, D, Fd = cfg.moe_experts, cfg.d_model, cfg.moe_d_ff
     kw = dict(device=device, stack=stack)
     p = {
@@ -46,19 +56,24 @@ def init_moe(gen, cfg, device=None, stack=None):
     }
     if cfg.mlp_gated:
         p["wg"] = ninit(gen, (E, D, Fd), fan_in_axis=1, **kw)
+    if moe is not None:
+        p["router_bias"] = ninit(gen, (E,), scale=0.02, **kw)
+        p["shared"] = init_mlp(gen, D, moe.shared_d_ff, True, **kw)
     return p
 
 
-def moe_mlp(params, x, cfg, return_aux=False):
-    """Dispatch to the configured implementation (the ctx env)."""
+def moe_mlp(params, x, cfg, return_aux=False, moe=None):
+    """Dispatch to the configured implementation (the ctx env).  ``moe``:
+    the block's ``MoESpec`` (sigmoid routing and shared experts), None
+    for the softmax router."""
     env = ctx.get_env()
     if (env is not None and env.moe_impl == "shardmap" and not return_aux
-            and cfg.moe_experts % env.msize == 0):
+            and moe is None and cfg.moe_experts % env.msize == 0):
         return moe_mlp_shardmap(params, x, cfg, env)
-    return _moe_mlp_gspmd(params, x, cfg, return_aux)
+    return _moe_mlp_gspmd(params, x, cfg, return_aux, moe)
 
 
-def _moe_mlp_gspmd(params, x, cfg, return_aux=False):
+def _moe_mlp_gspmd(params, x, cfg, return_aux=False, moe=None):
     """x: (B, S, D) -> (B, S, D). Token-choice top-k with capacity drop:
     each expert takes at most ``cap = max(int(factor * T * K / E), 1)`` of
     the T tokens (of the whole microbatch when these rows are a data
@@ -67,7 +82,7 @@ def _moe_mlp_gspmd(params, x, cfg, return_aux=False):
     t = ctx.tp()
     return _moe(params, x, cfg,
                 t if t is not None and moe_split(cfg, t.env) else None,
-                ctx.batch_groups(), return_aux)
+                ctx.batch_groups(), return_aux, moe)
 
 
 def moe_mlp_shardmap(params, x, cfg, env):
@@ -97,13 +112,37 @@ def expert_counts(ids, E: int) -> torch.Tensor:
         0, ids, torch.ones_like(ids))
 
 
-def _moe(params, x, cfg, tp, groups, return_aux):
+def _route(logits, params, K, moe):
+    """(gate, expert), each (T, K), and the (T, E) scores, from the
+    router's fp32 ``logits``.  Softmax (``moe`` None): the top K
+    probabilities, renormalised.  Sigmoid (``moe``): the top K of the
+    scores plus the selection bias ``router_bias``, their scores (not
+    biased) renormalised and scaled by ``moe.routed_scale``."""
+    if moe is None:
+        probs = torch.softmax(logits, dim=-1)
+        gate, expert = torch.topk(probs, K, dim=-1)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        return gate, expert, probs
+    scores = torch.sigmoid(logits)
+    expert = torch.topk(scores + params["router_bias"].float(), K,
+                        dim=-1).indices
+    gate = scores.gather(-1, expert)
+    gate = gate / (gate.sum(-1, keepdim=True) + 1e-20) * moe.routed_scale
+    return gate, expert, scores
+
+
+def _moe(params, x, cfg, tp, groups, return_aux, moe=None):
     """The dispatch, expert products and combine; ``tp`` the TP when the
     experts are split over ``model``, ``groups`` the batch axes whose data
-    shards share the capacity (``ctx.batch_groups``)."""
+    shards share the capacity (``ctx.batch_groups``); ``moe`` the block's
+    ``MoESpec`` (sigmoid routing, shared experts) or None."""
     if return_aux and (tp is not None or groups):
         raise NotImplementedError("the load-balance loss of a distributed "
                                   "MoE call")
+    if moe is not None and (return_aux or tp is not None or groups):
+        raise NotImplementedError("sigmoid routing with shared experts has "
+                                  "no load-balance loss and no sharded "
+                                  "layout")
     B, S, D = x.shape
     E, K = cfg.moe_experts, cfg.moe_topk
     T = B * S
@@ -112,9 +151,7 @@ def _moe(params, x, cfg, tp, groups, return_aux):
     xf = _enter(x, tp).reshape(T, D)
 
     logits = (xf @ params["router"].to(dt)).float()                  # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate, expert = torch.topk(probs, K, dim=-1)                       # (T, K)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    gate, expert, probs = _route(logits, params, K, moe)              # (T, K)
 
     flat_e = expert.reshape(-1)                                       # (T*K,)
     flat_g = gate.reshape(-1)
@@ -168,6 +205,9 @@ def _moe(params, x, cfg, tp, groups, return_aux):
     out = xf.new_zeros((T, D))
     for k in range(K):
         out = out + contrib[slots[:, k]]
+    if moe is not None:
+        tracing.count("moe.shared_rows", T)
+        out = out + mlp(params["shared"], xf, True)
     out = _leave(out.reshape(B, S, D), tp)
 
     if return_aux:

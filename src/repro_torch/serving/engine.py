@@ -10,6 +10,13 @@ decode attention runs through kernels/paged_attention (the CUDA kernel on
 the card, its plain version on the CPU), reading KV directly from the
 pool's frames tensor — children created by `fork_request` attend over the
 parent's pages with zero copies.
+
+A model of latent-attention blocks (MLASpec, models/mla.py) is decided at
+construction: its cache is latent (one row per token and layer, no V
+pages), and each decode layer absorbs its queries, writes the token's row
+and attends through the latent kernel (kernels/paged_attention/latent.py)
+inside an ``attn.latent`` span, counting the bytes the kernel needs in
+``mla.latent_bytes``.  A model of GQA blocks takes the GQA path alone.
 """
 from __future__ import annotations
 
@@ -20,10 +27,13 @@ import numpy as np
 import torch
 
 from repro_torch import _dtypes, tracing
-from repro_torch.configs.base import ArchConfig, AttnSpec
+from repro_torch.configs.base import ArchConfig, AttnSpec, MLASpec
+from repro_torch.kernels.paged_attention.latent import (latent_attention,
+                                                        latent_bytes)
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.serving.kv_cache import PagedKV
 from repro_torch.serving.sampling import sample
@@ -51,16 +61,30 @@ class ServingEngine:
                  backend: str = "auto", eos_id: int = -1, device="cuda",
                  keep_logits: bool = False):
         self.cfg = cfg
-        specs = [s for s in cfg.block_specs() if isinstance(s, AttnSpec)]
-        if len(specs) != cfg.num_layers:
+        self.specs = list(cfg.block_specs())
+        gqa = sum(isinstance(s, AttnSpec) for s in self.specs)
+        mla = [s for s in self.specs if isinstance(s, MLASpec)]
+        if gqa + len(mla) != cfg.num_layers:
             raise ValueError("paged engine supports attention archs; "
                              "use the recurrent-state engine for SSM archs")
-        self.specs = list(cfg.block_specs())
+        if gqa and mla:
+            raise ValueError("paged engine serves GQA or latent attention, "
+                             "not both in one model")
+        self.latent = bool(mla)
         self.params = params
         self.device = torch.device(device)
-        self.kv = PagedKV(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
-                          page_tokens=page_tokens, dtype=cfg.compute_dtype,
-                          device=self.device, kernel_backend=backend)
+        if self.latent:
+            if len({s.latent_dim for s in mla}) != 1:
+                raise ValueError("latent rows of one width in every layer")
+            self.kv = PagedKV(cfg.num_layers, 1, mla[0].latent_dim,
+                              page_tokens=page_tokens,
+                              dtype=cfg.compute_dtype, device=self.device,
+                              kernel_backend=backend, latent=True)
+        else:
+            self.kv = PagedKV(cfg.num_layers, cfg.num_kv_heads,
+                              cfg.head_dim, page_tokens=page_tokens,
+                              dtype=cfg.compute_dtype, device=self.device,
+                              kernel_backend=backend)
         self.backend = backend
         self.eos_id = eos_id
         self.keep_logits = keep_logits
@@ -116,17 +140,19 @@ class ServingEngine:
         cache_len = ((len(req.prompt) + Tp - 1) // Tp) * Tp
         logits, caches = lm.prefill(self.params, self.cfg, toks, cache_len)
         req.seq_id = self.kv.new_seq()
-        # flatten the grouped caches into (L, S, K, hd)
-        ks, vs = [], []
+        # flatten the grouped caches into (L, S, K, hd); a latent cache's
+        # rows (L, S, 1, latent_dim)
+        names = ("c",) if self.latent else ("k", "v")
+        flat = {n: [] for n in names}
         for g, gc in zip(self.cfg.groups, caches["groups"]):
             for r in range(g.repeat):               # execution order: repeat
                 for bi in range(len(g.unit)):       # outer, unit inner
                     c = gc["blocks"][bi]
-                    ks.append(c["k"][r, 0])
-                    vs.append(c["v"][r, 0])
-        k = torch.stack(ks)[:, :len(req.prompt)]
-        v = torch.stack(vs)[:, :len(req.prompt)]
-        self.kv.write_prefill(req.seq_id, k, v)
+                    for n in names:
+                        flat[n].append(c[n][r, 0])
+        parts = [torch.stack(flat[n])[:, :len(req.prompt)] for n in names]
+        parts.append(None)                  # a latent cache's V
+        self.kv.write_prefill(req.seq_id, parts[0], parts[1])
         last = logits[0, -1] if logits.dim() == 3 else logits[0]
         self._keep(req, last)
         req.out_tokens.append(int(torch.argmax(last)))
@@ -152,14 +178,21 @@ class ServingEngine:
         # contiguous (B, P) slice
         k_pt = torch.from_numpy(np.ascontiguousarray(
             k_pt.transpose(1, 0, 2))).to(dev)
-        v_pt = torch.from_numpy(np.ascontiguousarray(
-            v_pt.transpose(1, 0, 2))).to(dev)
+        if v_pt is not None:
+            v_pt = torch.from_numpy(np.ascontiguousarray(
+                v_pt.transpose(1, 0, 2))).to(dev)
         eff = torch.from_numpy(lens + 1).to(dev)
         G = cfg.num_heads // cfg.num_kv_heads
 
         h = L.embed_tokens(self.params["embed"], cfg, toks[:, None], dt)
         for li, (spec, bp) in enumerate(self._block_params):
             hn = L.rms_norm(h, bp["norm1"]["scale"], cfg.norm_eps)
+            if self.latent:
+                with tracing.span("attn.latent"):
+                    h = h + self._latent_attention(sids, li, spec, bp, hn,
+                                                   pos, k_pt[li], eff, lens)
+                h = h + lm.mla_block_mlp(bp, h, cfg, spec)
+                continue
             q, k1, v1 = L._project_qkv(bp["attn"], hn, spec, cfg,
                                        pos[:, None])
             # write this token's K/V into the reserved slot, then attend
@@ -191,20 +224,40 @@ class ServingEngine:
             if t == self.eos_id or len(r.out_tokens) >= r.max_tokens:
                 r.done = True
 
+    def _latent_attention(self, sids, li, spec, bp, hn, pos, pt, eff,
+                          lens):
+        """Layer ``li``'s latent attention of one token per sequence: the
+        absorbed queries, the token's row written, the kernel over the
+        rows (``eff`` of them, ``lens`` on the host before this token),
+        the heads' outputs un-absorbed."""
+        cfg = self.cfg
+        q, row = MLA.absorb(bp["attn"], hn, spec, cfg, pos)
+        self._write_token(sids, li, row[:, None], None)
+        if tracing.enabled():
+            tracing.count("mla.latent_bytes", latent_bytes(
+                lens + 1, cfg.num_heads, spec.latent_dim, spec.kv_lora_rank,
+                q.element_size()))
+        o = latent_attention(q, self.kv.frames_view(), pt, eff,
+                             dv=spec.kv_lora_rank, scale=MLA.scale_of(spec),
+                             backend=self.backend)
+        return MLA.unabsorb(bp["attn"], o, spec, hn.dtype)
+
     def _write_token(self, sids, layer, k_rows, v_rows) -> None:
-        """k_rows/v_rows: (B, K, hd) for one layer at each seq's current pos."""
+        """k_rows/v_rows: (B, K, hd) for one layer at each seq's current pos
+        (v_rows None in a latent cache)."""
         kv = self.kv
-        kf, vf, slots = [], [], []
+        frames = [[] for _ in kv.tables]
+        slots = []
         for s in sids:
             seq = kv.seqs[s]
             col, slot = divmod(seq.length, kv.Tp)
-            kf.append(seq.k_pages[layer, col])
-            vf.append(seq.v_pages[layer, col])
+            for f, t in zip(frames, kv.tables):
+                f.append(getattr(seq, t)[layer, col])
             slots.append(slot)
         B = len(sids)
         row = kv.K * kv.hd
-        kv.pool.write_rows(kv.dtype, kf, slots, k_rows.reshape(B, -1), row)
-        kv.pool.write_rows(kv.dtype, vf, slots, v_rows.reshape(B, -1), row)
+        for f, rows in zip(frames, (k_rows, v_rows)):
+            kv.pool.write_rows(kv.dtype, f, slots, rows.reshape(B, -1), row)
 
     # -- scheduler ------------------------------------------------------------------
 

@@ -6,6 +6,11 @@ copy-on-write with refcounts — the serving-side realization of the paper's
 zero-serialization state transfer (children fork the parent's prefix pages
 and append privately).
 
+A latent cache (``latent=True``, for latent attention) holds one row of
+``head_dim`` per token and layer (one "KV head": the latent and the shared
+rotary key, models/mla.py), in the K pages alone: it has no V pages, and
+its V tables are None.
+
 The pool is a DEVICE pool: the attention kernel reads the frames tensor
 in place (``frames_view`` is a view, no copy), and prefill writes and
 copy-on-write go through the page kernels.
@@ -18,7 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import _dtypes
+from repro_torch import _dtypes, tracing
 from repro_torch.memory.pool import PagePool
 
 
@@ -26,9 +31,10 @@ from repro_torch.memory.pool import PagePool
 class SeqKV:
     seq_id: int
     length: int
-    # page tables: (L, P) int32 frame ids for K and V
+    # page tables: (L, P) int32 frame ids for K and V (a latent cache's
+    # v_pages is None)
     k_pages: np.ndarray
-    v_pages: np.ndarray
+    v_pages: Optional[np.ndarray]
     # copy-on-write: pages shared with an ancestor are read-only
     shared_mask: np.ndarray       # (P,) bool — True = shared (not writable)
 
@@ -37,7 +43,12 @@ class PagedKV:
     def __init__(self, num_layers: int, kv_heads: int, head_dim: int,
                  page_tokens: int = 16, dtype=torch.bfloat16,
                  pool: Optional[PagePool] = None, device="cuda",
-                 kernel_backend: str = "auto"):
+                 kernel_backend: str = "auto", latent: bool = False):
+        if latent and kv_heads != 1:
+            raise ValueError("a latent cache holds one row per token")
+        self.latent = latent
+        # the page tables of a sequence, by field of SeqKV
+        self.tables = ("k_pages",) if latent else ("k_pages", "v_pages")
         self.L = num_layers
         self.K = kv_heads
         self.hd = head_dim
@@ -65,37 +76,46 @@ class PagedKV:
     def new_seq(self) -> int:
         sid = self._next
         self._next += 1
-        self.seqs[sid] = SeqKV(sid, 0,
-                               np.zeros((self.L, 0), np.int32),
-                               np.zeros((self.L, 0), np.int32),
+        empty = np.zeros((self.L, 0), np.int32)
+        self.seqs[sid] = SeqKV(sid, 0, empty,
+                               None if self.latent else empty.copy(),
                                np.zeros((0,), bool))
         return sid
 
+    def _frames(self, seq: SeqKV) -> list:
+        """Every frame of ``seq``'s tables."""
+        return [int(f) for t in self.tables
+                for f in getattr(seq, t).ravel()]
+
+    def _new_frames(self) -> list:
+        """One new page per layer for each table (K, then V), counted in
+        ``kv.page_bytes``."""
+        out = [self.pool.alloc(self.dtype, self.L) for _ in self.tables]
+        for frames in out:
+            for f in frames:
+                self.refcount[int(f)] = 1
+        if tracing.enabled():
+            tracing.count("kv.page_bytes", len(out) * self.L * self.page_elems
+                          * _dtypes.torch_dtype(self.dtype).itemsize)
+        return out
+
     def _alloc_column(self, seq: SeqKV) -> None:
-        """Append one page per layer for K and V."""
-        kf = self.pool.alloc(self.dtype, self.L)
-        vf = self.pool.alloc(self.dtype, self.L)
-        for f in list(kf) + list(vf):
-            self.refcount[int(f)] = 1
-        seq.k_pages = np.concatenate([seq.k_pages, kf[:, None]], axis=1)
-        seq.v_pages = np.concatenate([seq.v_pages, vf[:, None]], axis=1)
+        """Append one page per layer for K and V (a latent cache's rows)."""
+        for t, frames in zip(self.tables, self._new_frames()):
+            setattr(seq, t, np.concatenate([getattr(seq, t),
+                                            frames[:, None]], axis=1))
         seq.shared_mask = np.concatenate([seq.shared_mask, [False]])
 
     def _cow_column(self, seq: SeqKV, col: int) -> None:
         """Privatize a shared page column before writing (COW)."""
-        old_k, old_v = seq.k_pages[:, col].copy(), seq.v_pages[:, col].copy()
-        kf = self.pool.alloc(self.dtype, self.L)
-        vf = self.pool.alloc(self.dtype, self.L)
-        self.pool.write_pages(self.dtype, kf,
-                              self.pool.read_pages(self.dtype, old_k))
-        self.pool.write_pages(self.dtype, vf,
-                              self.pool.read_pages(self.dtype, old_v))
-        for f in list(kf) + list(vf):
-            self.refcount[int(f)] = 1
-        for f in list(old_k) + list(old_v):
-            self._unref(int(f))
-        seq.k_pages[:, col] = kf
-        seq.v_pages[:, col] = vf
+        olds = [getattr(seq, t)[:, col].copy() for t in self.tables]
+        for t, old, new in zip(self.tables, olds, self._new_frames()):
+            self.pool.write_pages(self.dtype, new,
+                                  self.pool.read_pages(self.dtype, old))
+            getattr(seq, t)[:, col] = new
+        for old in olds:
+            for f in old:
+                self._unref(int(f))
         seq.shared_mask[col] = False
 
     def ensure_writable_slot(self, sid: int) -> tuple:
@@ -109,19 +129,20 @@ class PagedKV:
         return col, slot
 
     def append_token(self, sid: int, k_rows, v_rows) -> None:
-        """k_rows/v_rows: (L, K, hd) for the new token."""
+        """k_rows/v_rows: (L, K, hd) for the new token (v_rows None in a
+        latent cache)."""
         seq = self.seqs[sid]
         col, slot = self.ensure_writable_slot(sid)
         row = self.K * self.hd
         slots = [slot] * self.L
-        self.pool.write_rows(self.dtype, seq.k_pages[:, col], slots,
-                             k_rows.reshape(self.L, -1), row)
-        self.pool.write_rows(self.dtype, seq.v_pages[:, col], slots,
-                             v_rows.reshape(self.L, -1), row)
+        for t, rows in zip(self.tables, (k_rows, v_rows)):
+            self.pool.write_rows(self.dtype, getattr(seq, t)[:, col], slots,
+                                 rows.reshape(self.L, -1), row)
         seq.length += 1
 
     def write_prefill(self, sid: int, k, v) -> None:
-        """k/v: (L, S, K, hd) — bulk-write a prefilled prefix."""
+        """k/v: (L, S, K, hd) — bulk-write a prefilled prefix (v None in a
+        latent cache)."""
         L, S = k.shape[0], k.shape[1]
         seq = self.seqs[sid]
         assert seq.length == 0
@@ -129,16 +150,15 @@ class PagedKV:
         for _ in range(ncols):
             self._alloc_column(seq)
         pad = ncols * self.Tp - S
-        if pad:
-            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        k = k.reshape(L, ncols, self.Tp, self.K, self.hd)
-        v = v.reshape(L, ncols, self.Tp, self.K, self.hd)
+        parts = []
+        for x in (k, v)[:len(self.tables)]:
+            if pad:
+                x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+            parts.append(x.reshape(L, ncols, self.Tp, self.K, self.hd))
         for c in range(ncols):
-            self.pool.write_pages(self.dtype, seq.k_pages[:, c],
-                                  k[:, c].reshape(L, -1))
-            self.pool.write_pages(self.dtype, seq.v_pages[:, c],
-                                  v[:, c].reshape(L, -1))
+            for t, x in zip(self.tables, parts):
+                self.pool.write_pages(self.dtype, getattr(seq, t)[:, c],
+                                      x[:, c].reshape(L, -1))
         seq.length = S
 
     # -- fork (the paper's state transfer) ---------------------------------------
@@ -149,12 +169,12 @@ class PagedKV:
         child = self.new_seq()
         dst = self.seqs[child]
         dst.length = src.length
-        dst.k_pages = src.k_pages.copy()
-        dst.v_pages = src.v_pages.copy()
+        for t in self.tables:
+            setattr(dst, t, getattr(src, t).copy())
         dst.shared_mask = np.ones(src.k_pages.shape[1], bool)
         src.shared_mask = np.ones(src.k_pages.shape[1], bool)  # parent too
-        for f in list(src.k_pages.ravel()) + list(src.v_pages.ravel()):
-            self.refcount[int(f)] = self.refcount.get(int(f), 1) + 1
+        for f in self._frames(src):
+            self.refcount[f] = self.refcount.get(f, 1) + 1
         return child
 
     def _unref(self, frame: int) -> None:
@@ -167,26 +187,26 @@ class PagedKV:
         seq = self.seqs.pop(sid, None)
         if seq is None:
             return
-        for f in list(seq.k_pages.ravel()) + list(seq.v_pages.ravel()):
-            self._unref(int(f))
+        for f in self._frames(seq):
+            self._unref(f)
 
     # -- batched views for attention ----------------------------------------------
 
     def batch_tables(self, sids: List[int]):
         """Pad page tables to a common length: returns host (k_pt, v_pt,
-        lengths) with shape (B, L, P); padded columns point at frame 0."""
+        lengths) with shape (B, L, P); padded columns point at frame 0 (a
+        latent cache's v_pt is None)."""
         P = max(self.seqs[s].k_pages.shape[1] for s in sids)
         B = len(sids)
-        k_pt = np.zeros((B, self.L, P), np.int32)
-        v_pt = np.zeros((B, self.L, P), np.int32)
+        pts = [np.zeros((B, self.L, P), np.int32) for _ in self.tables]
         lens = np.zeros((B,), np.int32)
         for i, s in enumerate(sids):
             seq = self.seqs[s]
             p = seq.k_pages.shape[1]
-            k_pt[i, :, :p] = seq.k_pages
-            v_pt[i, :, :p] = seq.v_pages
+            for t, pt in zip(self.tables, pts):
+                pt[i, :, :p] = getattr(seq, t)
             lens[i] = seq.length
-        return k_pt, v_pt, lens
+        return pts[0], pts[1] if len(pts) > 1 else None, lens
 
     def bytes_in_use(self) -> int:
         return self.pool.bytes_allocated()
