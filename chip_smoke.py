@@ -48,6 +48,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and every request's paged-engine logits must be close to the non-paged
    model's on the same card; the pages each kernel moved and the route
    counts are printed;
+4b. the decode step as a CUDA graph (``decode_graph_phase``): tiny dense
+   GQA, MoE and latent configs served on the card and on the CPU, lone
+   requests on fresh engines and a batch of a request and two children
+   forked mid-column: equal tokens, logits within 1e-5, equal counters,
+   one capture per request and frames tensor and a replay per step, the
+   attention kernel launched once a layer and step; a profiled trace of 6
+   replayed steps shows it once a layer and step and one host-to-device
+   copy a step;
 5. the serverless platform for gemma3-1b at full width: four nodes, one
    ``Coordinator(seed_replicas=2)``.  A function whose behaviour
    materializes its instance and answers one prompt through the
@@ -1278,6 +1286,199 @@ def main_path(torch):
     print("[smoke] main path: " + json.dumps(summary))
     print("[smoke] network meter: " + json.dumps(snap))
     return launches, pages, routes
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the paged decode step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+GRAPH_TOL = 1e-5           # a card engine's logits against the CPU engine's
+GRAPH_TP = 16              # page tokens, as the benchmark's cells
+GRAPH_PROFILED = 6         # replayed steps in the profiled trace
+GRAPH_ENTRY = {"gqa": "paged_attention", "moe": "paged_attention",
+               "latent": "latent_attention"}
+
+
+def graph_cfgs():
+    """Tiny configs of the three kinds the step body serves: dense GQA
+    (micro-hello at smoke size), GQA with experts (moonshot at smoke
+    size), latent attention with sigmoid-routed and shared experts
+    (Moonlight's blocks at small widths, as tests/test_torch_moonlight.py
+    builds them)."""
+    from repro_torch.configs.base import (GroupSpec, MLASpec, MoESpec,
+                                          get_arch, reduce_for_smoke)
+    small = lambda a: dataclasses.replace(reduce_for_smoke(get_arch(a)),
+                                          compute_dtype="float32")
+    attn = MLASpec(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                   v_head_dim=16)
+    sparse = dataclasses.replace(attn, moe=MoESpec(routed_scale=2.446,
+                                                   shared_d_ff=48))
+    latent = dataclasses.replace(
+        get_arch("moonlight-16b-a3b"), name="moonlight-tiny", d_model=64,
+        num_heads=4, num_kv_heads=4, head_dim=16, d_ff=96, vocab_size=256,
+        groups=(GroupSpec(unit=(attn,), repeat=1),
+                GroupSpec(unit=(sparse,), repeat=2)),
+        moe_experts=8, moe_topk=3, moe_d_ff=24, compute_dtype="float32")
+    return {"gqa": small("micro-hello"), "moe": small(MOE_ARCH),
+            "latent": latent}
+
+
+def map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def graph_serve(torch, cfg, params, dev, drive):
+    """``drive(engine)`` on a fresh engine with the tracer on: (the
+    engine, its counters, its spans' names, the kernel launches and routes
+    it added, the frames tensors its steps used)."""
+    from collections import Counter
+    from repro_torch import tracing
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving.engine import ServingEngine
+    launches, routes = Counter(dispatch.launches), Counter(dispatch.routes)
+    tracing.reset()
+    tracing.enable()
+    eng = ServingEngine(cfg, params, page_tokens=GRAPH_TP, device=dev,
+                        keep_logits=True)
+    frames = set()
+    step = eng.step
+
+    def stepped():
+        out = step()
+        frames.add(eng.kv.frames_view().data_ptr())
+        return out
+    eng.step = stepped
+    try:
+        drive(eng)
+    finally:
+        tracing.disable()
+        del eng.step                       # the engine, not a cycle, again
+    snap = tracing.snapshot()
+    return (eng, dict(snap["counters"]), [s.name for s in snap["spans"]],
+            Counter(dispatch.launches) - launches,
+            Counter(dispatch.routes) - routes, len(frames))
+
+
+def graph_pair(torch, cfg, params, dev, drive, what):
+    """``drive`` on an engine on ``dev`` and on one on the CPU: tokens
+    equal, logits within GRAPH_TOL, counters equal but the graph's own;
+    returns the card side's record and the largest logit error."""
+    cpu = torch.device("cpu")
+    got = graph_serve(torch, cfg, map_tree(lambda t: t.to(dev), params),
+                      dev, drive)
+    want = graph_serve(torch, cfg, params, cpu, drive)
+    err = 0.0
+    for rid, r in want[0].requests.items():
+        g = got[0].requests[rid]
+        if g.out_tokens != r.out_tokens:
+            raise AssertionError(f"{what}: request {rid} tokens "
+                                 f"{g.out_tokens} != CPU {r.out_tokens}")
+        for a, b in zip(g.logits, r.logits):
+            err = max(err, float((a - b).abs().max()))
+    if not err <= GRAPH_TOL:
+        raise AssertionError(f"{what}: logits max abs err {err} > "
+                             f"{GRAPH_TOL}")
+    mine = lambda c: {k: v for k, v in c.items()
+                      if not k.startswith("serve.graph_")}
+    if mine(got[1]) != mine(want[1]):
+        raise AssertionError(f"{what}: counters {got[1]} != CPU {want[1]}")
+    return got, err
+
+
+def graph_profile(torch, cfg, params, entry):
+    """Device events of GRAPH_PROFILED replayed steps of one request:
+    (launches of ``entry``'s kernel, host-to-device copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import ServingEngine
+    dev = params["embed"]["tok"].device
+    eng = ServingEngine(cfg, params, page_tokens=GRAPH_TP, device=dev)
+    eng.submit(list(range(1, 41)), max_tokens=GRAPH_PROFILED + 3)
+    eng.step()                         # prefill, capture, first replay
+    eng.step()
+    sync_dev(torch, dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(GRAPH_PROFILED):
+            eng.step()
+        sync_dev(torch, dev)
+    names = [e.name for e in prof.events()
+             if str(e.device_type).endswith("CUDA")]
+    return (sum(entry + "_kernel" in n for n in names),
+            sum("HtoD" in n for n in names))
+
+
+def decode_graph_phase(torch, dev, smoke=False) -> dict:
+    """Each tiny config served on ``dev`` against the CPU engine: two lone
+    requests on fresh engines, as the benchmark serves them (a prompt of 2
+    Tp - 1 tokens, whose decode crosses a page column, and one of 37),
+    each one capture per frames tensor its steps used and a replay per
+    step, the kernel launched once a layer and step; then a batch of
+    three on one engine, a request and two children forked from it
+    mid-column (copy-on-write).  On a CUDA device, a profiled trace of
+    replayed steps names the attention kernel once a layer and step and
+    shows one host-to-device copy a step.  ``smoke`` is unused (the
+    configs are tiny); the CPU rehearsal stands a capture in."""
+    out = {}
+    for kind, cfg in graph_cfgs().items():
+        from repro_torch.models import lm
+        params = lm.init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+        entry = GRAPH_ENTRY[kind]
+        layers = cfg.num_layers
+        row = {"layers": layers, "requests": []}
+        for n_prompt in (2 * GRAPH_TP - 1, 37):
+            def lone(eng, n=n_prompt):
+                eng.submit([(7 * i + 3) % cfg.vocab_size for i in range(n)],
+                           max_tokens=9)
+                eng.run_to_completion()
+            (eng, counters, spans, launches, _, frames), err = graph_pair(
+                torch, cfg, params, dev, lone, f"{kind} prompt {n_prompt}")
+            steps = spans.count("serve.decode")
+            got = (counters.get("serve.graph_captures", 0),
+                   counters.get("serve.graph_replays", 0))
+            if got != (frames, steps) or steps != 8:
+                raise AssertionError(f"{kind}: captures, replays {got}; "
+                                     f"frames tensors {frames}, steps "
+                                     f"{steps}")
+            if dev.type == "cuda" and launches[entry] != layers * steps:
+                raise AssertionError(f"{kind}: {launches[entry]} {entry} "
+                                     f"launches, {layers} x {steps} steps")
+            row["requests"].append({"prompt": n_prompt, "captures": got[0],
+                                    "replays": got[1], "launches":
+                                    launches[entry], "max_abs_err": err})
+
+        def demo(eng):
+            r0 = eng.submit([(5 * i + 1) % cfg.vocab_size
+                             for i in range(21)], max_tokens=8)
+            eng.step()
+            eng.step()
+            for _ in range(2):
+                eng.fork_request(r0, max_tokens=6)
+            eng.run_to_completion()
+        (eng, counters, spans, _, _, _), err = graph_pair(
+            torch, cfg, params, dev, demo, f"{kind} fork demo")
+        if counters.get("serve.graph_replays", 0) != \
+                spans.count("serve.decode"):
+            raise AssertionError(f"{kind} fork demo: {counters}")
+        row["demo"] = {"captures": counters.get("serve.graph_captures", 0),
+                       "replays": counters.get("serve.graph_replays", 0),
+                       "max_abs_err": err}
+        if dev.type == "cuda":
+            kernels, copies = graph_profile(
+                torch, cfg, map_tree(lambda t: t.to(dev), params), entry)
+            if (kernels, copies) != (layers * GRAPH_PROFILED,
+                                     GRAPH_PROFILED):
+                raise AssertionError(
+                    f"{kind}: {kernels} {entry} kernels and {copies} "
+                    f"host-to-device copies in {GRAPH_PROFILED} replayed "
+                    f"steps of {layers} layers")
+            row["profiled"] = {"steps": GRAPH_PROFILED, "kernels": kernels,
+                               "htod_copies": copies}
+        print(f"[smoke] decode graph {kind}: " + json.dumps(row))
+        out[kind] = row
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2631,6 +2832,8 @@ def main() -> int:
     launches, pages, routes = main_path(torch)
 
     dev = torch.device("cuda", torch.cuda.current_device())
+    run_phase(torch, "decode_graph", lambda: decode_graph_phase(torch, dev),
+              required=("paged_attention",))
     run_phase(torch, "platform", lambda: platform_phase(torch, dev),
               required=KERNELS, bulk=BULK_KERNELS)
     examples = {}

@@ -69,6 +69,12 @@ def count_launch(entry: str, pages: int = 0, route: str = None) -> None:
         routes[f"{entry}.{route}"] += 1
 
 
+def counters() -> tuple:
+    """Every count kept here, each a ``Counter``: the choice meter, and
+    the launches, pages moved and routes."""
+    return _meter, launches, pages_moved, routes
+
+
 def reset_launches() -> None:
     launches.clear()
     pages_moved.clear()

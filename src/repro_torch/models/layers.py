@@ -32,6 +32,7 @@ tensors replicated over ``model``; a split region starts with
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -169,11 +170,18 @@ def rope_freqs(head_dim, theta):
                             / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def rope_table(head_dim, theta, device):
+    """``rope_freqs`` as an fp32 tensor on ``device``, built once for each
+    ``(head_dim, theta, device)``: a decode step uploads nothing for it,
+    and a CUDA graph of the step can read it."""
+    return torch.from_numpy(rope_freqs(head_dim, theta).astype(
+        np.float32)).to(device)
+
+
 def apply_rope(x, positions, theta):
     """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
-    hd = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(hd, theta).astype(np.float32)).to(
-        x.device)
+    freqs = rope_table(x.shape[-1], theta, x.device)
     ang = positions[..., None].float() * freqs                # (..., S, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

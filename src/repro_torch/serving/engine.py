@@ -15,15 +15,23 @@ A model of latent-attention blocks (MLASpec, models/mla.py) is decided at
 construction: its cache is latent (one row per token and layer, no V
 pages), and each decode layer absorbs its queries, writes the token's row
 and attends through the latent kernel (kernels/paged_attention/latent.py)
-inside an ``attn.latent`` span, counting the bytes the kernel needs in
-``mla.latent_bytes``.  A model of GQA blocks takes the GQA path alone.
+inside an ``attn.latent`` span; the bytes the kernel needs are counted
+in ``mla.latent_bytes`` once a step, from the host lengths.  A model of
+GQA blocks takes the GQA path alone; every kind shares one step body.
+
+A decode step (``_decode_batch``) reserves its slots eagerly, copies its
+inputs once into static buffers (serving/graph.py), and runs one body
+that reads nothing from the host: each layer's write targets come from
+the uploaded tables on the device.  On a CUDA device the body is captured
+as a CUDA graph for each key (batch, tables' width, the pool's frames
+tensor) and replayed, with ``serve.capture`` around the capture; spans
+inside the body (``attn.latent``) then open only while it is captured.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
 from repro_torch import _dtypes, tracing
@@ -35,6 +43,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.serving import graph
 from repro_torch.serving.kv_cache import PagedKV
 from repro_torch.serving.sampling import sample
 
@@ -93,6 +102,8 @@ class ServingEngine:
         self.waiting: List[int] = []
         self._rid = 0
         self._block_params = self._flatten_blocks()
+        self._inputs: Optional[graph.StepInputs] = None  # the step's buffers
+        self._graph: Optional[graph.StepGraph] = None  # its captured step
 
     def _flatten_blocks(self):
         """Per-layer param slices (unstacked views for the python-loop path)."""
@@ -130,8 +141,9 @@ class ServingEngine:
     # -- model internals ---------------------------------------------------------
 
     def _keep(self, req: Request, logits) -> None:
-        if self.keep_logits:
-            req.logits.append(logits.detach().float().cpu())
+        if self.keep_logits:       # a copy: a replay rewrites its outputs
+            req.logits.append(logits.detach().to("cpu", torch.float32,
+                                                  copy=True))
 
     def _prefill(self, req: Request) -> None:
         toks = torch.tensor(req.prompt, dtype=torch.int32,
@@ -158,51 +170,86 @@ class ServingEngine:
         req.out_tokens.append(int(torch.argmax(last)))
 
     def _decode_batch(self, rids: List[int]) -> None:
-        B = len(rids)
-        cfg = self.cfg
-        dev = self.device
+        """One token for each of ``rids``: the slots reserved (alloc and
+        copy-on-write, eager), the inputs copied once, then the body:
+        replayed from its CUDA graph on a CUDA device (captured anew for
+        each key: batch, tables' width, frames tensor), run as it is
+        elsewhere."""
         reqs = [self.requests[r] for r in rids]
         sids = [r.seq_id for r in reqs]
-        toks = torch.tensor([(r.out_tokens[-1] if r.out_tokens
-                              else r.prompt[-1]) for r in reqs],
-                            dtype=torch.int32, device=dev)
-        pos = torch.tensor([self.kv.seqs[s].length for s in sids],
-                           dtype=torch.int32, device=dev)
-        dt = _dtypes.torch_dtype(cfg.compute_dtype)
-
-        # reserve the slot for the incoming token (alloc/COW before write)
         for s in sids:
             self.kv.ensure_writable_slot(s)
-        k_pt, v_pt, lens = self.kv.batch_tables(sids)
-        # one upload per step, layer-major so each layer's table is a
-        # contiguous (B, P) slice
-        k_pt = torch.from_numpy(np.ascontiguousarray(
-            k_pt.transpose(1, 0, 2))).to(dev)
-        if v_pt is not None:
-            v_pt = torch.from_numpy(np.ascontiguousarray(
-                v_pt.transpose(1, 0, 2))).to(dev)
-        eff = torch.from_numpy(lens + 1).to(dev)
-        G = cfg.num_heads // cfg.num_kv_heads
+        Tp = self.kv.Tp
+        # the tables padded to the batch's final width, so that a request
+        # keeps one key from its first step to its last
+        W = max(max(-(-(len(r.prompt) + r.max_tokens) // Tp),
+                    self.kv.seqs[s].k_pages.shape[1])
+                for r, s in zip(reqs, sids))
+        x = self._inputs
+        if x is None or (x.B, x.W) != (len(sids), W):
+            x = self._inputs = graph.StepInputs(
+                len(sids), self.cfg.num_layers, W, len(self.kv.tables),
+                self.device)
+        k_pt, v_pt, lens = self.kv.batch_tables(sids, width=W)
+        x.load([r.out_tokens[-1] if r.out_tokens else r.prompt[-1]
+                for r in reqs], lens, (k_pt, v_pt)[:len(self.kv.tables)])
+        if self.latent and tracing.enabled():
+            item = _dtypes.torch_dtype(self.cfg.compute_dtype).itemsize
+            for spec in self.specs:
+                tracing.count("mla.latent_bytes", latent_bytes(
+                    lens + 1, self.cfg.num_heads, spec.latent_dim,
+                    spec.kv_lora_rank, item))
+        if graph.captures(self.device):
+            f = self.kv.frames_view()
+            key = (x.B, W, f.data_ptr(), f.shape[0])
+            if self._graph is None or self._graph.key != key:
+                self._graph = None          # its pool freed before the next
+                self._graph = graph.StepGraph(key, lambda: self._body(x),
+                                              self.device)
+            logits, toks = self._graph.replay()
+        else:
+            logits, toks = self._body(x)
+        toks_new = toks.tolist()
+        for i, (r, s) in enumerate(zip(reqs, sids)):
+            self.kv.seqs[s].length += 1
+            self._keep(r, logits[i])
+            t = int(toks_new[i])
+            r.out_tokens.append(t)
+            if t == self.eos_id or len(r.out_tokens) >= r.max_tokens:
+                r.done = True
 
-        h = L.embed_tokens(self.params["embed"], cfg, toks[:, None], dt)
+    def _body(self, x: graph.StepInputs):
+        """The step on the static inputs ``x``, host values read from
+        nothing else: embedding, every layer (each writes its token's rows,
+        then attends), final norm, head, greedy token.  Returns (logits
+        (B, V), tokens (B,))."""
+        cfg = self.cfg
+        B = x.B
+        dt = _dtypes.torch_dtype(cfg.compute_dtype)
+        # every layer's write targets, derived on the device: the frame of
+        # each sequence's column pos // Tp in each table, and slot pos % Tp
+        cols = (x.pos // self.kv.Tp).long()
+        at = ([pt.gather(2, cols.expand(pt.shape[0], B)[..., None])[..., 0]
+               .long() for pt in x.tables], (x.pos % self.kv.Tp).long())
+        G = cfg.num_heads // cfg.num_kv_heads
+        h = L.embed_tokens(self.params["embed"], cfg, x.tokens[:, None], dt)
         for li, (spec, bp) in enumerate(self._block_params):
             hn = L.rms_norm(h, bp["norm1"]["scale"], cfg.norm_eps)
             if self.latent:
                 with tracing.span("attn.latent"):
-                    h = h + self._latent_attention(sids, li, spec, bp, hn,
-                                                   pos, k_pt[li], eff, lens)
+                    h = h + self._latent_attention(at, li, spec, bp, hn, x)
                 h = h + lm.mla_block_mlp(bp, h, cfg, spec)
                 continue
             q, k1, v1 = L._project_qkv(bp["attn"], hn, spec, cfg,
-                                       pos[:, None])
+                                       x.pos[:, None])
             # write this token's K/V into the reserved slot, then attend
-            self._write_token(sids, li, k1[:, 0], v1[:, 0])
+            self._write_token(at, li, k1[:, 0], v1[:, 0])
             frames = self.kv.frames_view()
             qh = q[:, 0].reshape(B, cfg.num_kv_heads, G, cfg.head_dim)
-            starts = (torch.clamp(eff - spec.window, min=0)
+            starts = (torch.clamp(x.eff - spec.window, min=0)
                       if spec.window is not None else None)
-            att = paged_attention(qh, frames, frames, k_pt[li], eff,
-                                  v_page_table=v_pt[li], starts=starts,
+            att = paged_attention(qh, frames, frames, x.tables[0][li], x.eff,
+                                  v_page_table=x.tables[1][li], starts=starts,
                                   backend=self.backend)
             a = att.reshape(B, 1, cfg.num_heads, cfg.head_dim)
             y = torch.einsum("bshk,hkd->bsd", a, bp["attn"]["wo"].to(dt))
@@ -215,49 +262,29 @@ class ServingEngine:
                     h = h + L.mlp(bp["mlp"], hn2, cfg.mlp_gated)
         h = L.rms_norm(h, self.params["final_norm"]["scale"], cfg.norm_eps)
         logits = L.output_logits(self.params["embed"], cfg, h)[:, 0]
-        toks_new = sample(logits).tolist()     # greedy, as in the reference
-        for i, (r, s) in enumerate(zip(reqs, sids)):
-            self.kv.seqs[s].length += 1
-            self._keep(r, logits[i])
-            t = int(toks_new[i])
-            r.out_tokens.append(t)
-            if t == self.eos_id or len(r.out_tokens) >= r.max_tokens:
-                r.done = True
+        return logits, sample(logits)      # greedy, as in the reference
 
-    def _latent_attention(self, sids, li, spec, bp, hn, pos, pt, eff,
-                          lens):
+    def _latent_attention(self, at, li, spec, bp, hn, x: graph.StepInputs):
         """Layer ``li``'s latent attention of one token per sequence: the
         absorbed queries, the token's row written, the kernel over the
-        rows (``eff`` of them, ``lens`` on the host before this token),
-        the heads' outputs un-absorbed."""
-        cfg = self.cfg
-        q, row = MLA.absorb(bp["attn"], hn, spec, cfg, pos)
-        self._write_token(sids, li, row[:, None], None)
-        if tracing.enabled():
-            tracing.count("mla.latent_bytes", latent_bytes(
-                lens + 1, cfg.num_heads, spec.latent_dim, spec.kv_lora_rank,
-                q.element_size()))
-        o = latent_attention(q, self.kv.frames_view(), pt, eff,
+        rows (``x.eff`` of them), the heads' outputs un-absorbed."""
+        q, row = MLA.absorb(bp["attn"], hn, spec, self.cfg, x.pos)
+        self._write_token(at, li, row[:, None], None)
+        o = latent_attention(q, self.kv.frames_view(), x.tables[0][li], x.eff,
                              dv=spec.kv_lora_rank, scale=MLA.scale_of(spec),
                              backend=self.backend)
         return MLA.unabsorb(bp["attn"], o, spec, hn.dtype)
 
-    def _write_token(self, sids, layer, k_rows, v_rows) -> None:
-        """k_rows/v_rows: (B, K, hd) for one layer at each seq's current pos
-        (v_rows None in a latent cache)."""
-        kv = self.kv
-        frames = [[] for _ in kv.tables]
-        slots = []
-        for s in sids:
-            seq = kv.seqs[s]
-            col, slot = divmod(seq.length, kv.Tp)
-            for f, t in zip(frames, kv.tables):
-                f.append(getattr(seq, t)[layer, col])
-            slots.append(slot)
-        B = len(sids)
-        row = kv.K * kv.hd
+    def _write_token(self, at, layer, k_rows, v_rows) -> None:
+        """Layer ``layer``'s rows of this token, k_rows/v_rows (B, K, hd)
+        (v_rows None in a latent cache), into each sequence's reserved
+        slot by one ``index_put_`` a table: ``at`` is the step's write
+        targets on the device, the frames (L, B) of each table and the
+        slots (B,)."""
+        frames, slots = at
+        view = self.kv.frames_view()
         for f, rows in zip(frames, (k_rows, v_rows)):
-            kv.pool.write_rows(kv.dtype, f, slots, rows.reshape(B, -1), row)
+            view.index_put_((f[layer], slots), rows.to(view.dtype))
 
     # -- scheduler ------------------------------------------------------------------
 

@@ -192,11 +192,12 @@ class PagedKV:
 
     # -- batched views for attention ----------------------------------------------
 
-    def batch_tables(self, sids: List[int]):
-        """Pad page tables to a common length: returns host (k_pt, v_pt,
-        lengths) with shape (B, L, P); padded columns point at frame 0 (a
-        latent cache's v_pt is None)."""
-        P = max(self.seqs[s].k_pages.shape[1] for s in sids)
+    def batch_tables(self, sids: List[int], width: Optional[int] = None):
+        """Pad page tables to a common length, the longest table's or
+        ``width``: returns host (k_pt, v_pt, lengths) with shape (B, L, P);
+        padded columns point at frame 0 (a latent cache's v_pt is None)."""
+        P = max([self.seqs[s].k_pages.shape[1] for s in sids]
+                + [width or 0])
         B = len(sids)
         pts = [np.zeros((B, self.L, P), np.int32) for _ in self.tables]
         lens = np.zeros((B,), np.int32)

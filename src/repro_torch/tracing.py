@@ -28,10 +28,14 @@ to the last request started.  The coordinator serves one call at a time.
 
 Counters (:func:`count`) live here, apart from ``Network.meter``,
 ``ModelInstance.stats``, the pools' meters and the kernel layer's counts,
-which tests hold equal to the reference's.
+which tests hold equal to the reference's.  Inside :func:`taped`, counts
+go to a tape instead, whether tracing is on or off: the decode step's
+CUDA graph (``serving/graph.py``) tapes its capture and adds the tape
+again at each replay.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import Counter
@@ -64,6 +68,7 @@ _open: List[int] = []          # indices of the spans open now, innermost last
 _counters: Counter = Counter()
 _requests = 0                  # requests started since the last reset
 _last_request: Optional[int] = None
+_tape: Optional[Counter] = None     # where counts go inside taped()
 
 
 class _Nothing:
@@ -123,9 +128,24 @@ def span(name: str, request: bool = False, **attrs):
 
 def count(name: str, n: int) -> None:
     """Add ``n`` (a host integer: no device value is read) to counter
-    ``name``."""
-    if _on:
+    ``name``; inside :func:`taped`, to its tape instead."""
+    if _tape is not None:
+        _tape[name] += n
+    elif _on:
         _counters[name] += n
+
+
+@contextlib.contextmanager
+def taped():
+    """Counts made inside, on or off, go to the ``Counter`` this yields and
+    not to the counters: a CUDA graph's capture records what each replay
+    adds again with :func:`count`."""
+    global _tape
+    outer, _tape = _tape, Counter()
+    try:
+        yield _tape
+    finally:
+        _tape = outer
 
 
 def enable() -> None:
