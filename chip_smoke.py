@@ -1043,13 +1043,22 @@ def run_attention_case(torch, case, dtype):
             "bytes": nbytes, "flops": flops}
 
 
+def _device_us(evt) -> float:
+    """Device microseconds of a profiler average, by whichever name this
+    PyTorch gives the field."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
 def attention_kernel_split(torch, reps: int = 20) -> dict:
     """Device microseconds per call of each of paged_attention's two
     kernels (the split kernel and the combine), from ``torch.profiler``,
     on one fp32 sequence of 8,192 tokens at gemma3-1b's head shape."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.paged_attention import ops as pa
-    from repro_torch.launch.profile_serve import _device_us
     dev = torch.device("cuda")
     Tp, hd, tokens = 16, 256, 8192
     P = tokens // Tp + 1

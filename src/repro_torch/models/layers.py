@@ -1,7 +1,7 @@
 """Shared layers of the model families: norms, RoPE, GQA attention
-(training with query chunks, prefill with its cache, one-token decode,
-global and sliding-window), MLPs, embedding, output head and chunked
-cross-entropy.
+(training with query chunks, prefill with its cache, one-token decode
+over a dense or a paged cache, global and sliding-window), MLPs,
+embedding, output head and chunked cross-entropy.
 
 Plain functions on tensors; parameters are nested dicts of tensors with
 the reference package's names and layouts (heads kept as separate axes:
@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import comm, ctx
 from repro_torch.distributed.sharding import attn_plan
+from repro_torch.kernels.paged_attention.ops import paged_attention
 
 NEG_INF = -1e30
 
@@ -545,6 +546,29 @@ def attention_decode(params, x, spec, cfg, cache, pos):
     if rest is not None:
         ck, cv = comm.slice_model(ck, rest, -1), comm.slice_model(cv, rest, -1)
     return y, {"k": ck, "v": cv}
+
+
+def attention_paged_decode(params, x, spec, cfg, pos, *, write, frames,
+                           tables, lengths, backend="auto"):
+    """One-token decode over a paged cache. x: (B,1,D); pos: (B,) absolute.
+    ``write(k_rows, v_rows)`` stores the token's K and V (B,K,hd) in its
+    slots; the paged kernel then attends over ``frames`` (F,Tp,K,hd)
+    through the layer's K and V page ``tables`` (B,W) up to ``lengths``
+    (B,), a window layer from ``lengths - window``.  One device, no split:
+    ``attention_decode`` carries the tensor- and sequence-parallel
+    layouts."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(params, x, spec, cfg, pos[:, None])
+    write(k[:, 0], v[:, 0])
+    qh = q[:, 0].reshape(B, cfg.num_kv_heads,
+                         cfg.num_heads // cfg.num_kv_heads, cfg.head_dim)
+    starts = (torch.clamp(lengths - spec.window, min=0)
+              if spec.window is not None else None)
+    out = paged_attention(qh, frames, frames, tables[0], lengths,
+                          v_page_table=tables[1], starts=starts,
+                          backend=backend)
+    out = out.reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
 
 
 def init_attn_cache(cfg, spec, batch, cache_len, dtype, device=None):

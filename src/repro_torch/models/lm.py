@@ -86,34 +86,29 @@ def _init_mla_block(gen, cfg, spec, kw):
     if spec.moe is not None:
         p["moe"] = MOE.init_moe(gen, cfg, moe=spec.moe, **kw)
     else:
-        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, True, **kw)
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, **kw)
     return p
 
 
-def _apply_mla_block(params, h, hn, cfg, spec, *, mode, positions, cache,
-                     pos, cache_len, q_chunk):
-    """An MLASpec block after its first norm: latent attention, then its
-    MoE or its dense MLP."""
-    cache_out = None
-    if mode == "train":
-        a = MLA.mla_train(params["attn"], hn, spec, cfg, positions, q_chunk)
-    elif mode == "prefill":
-        a, cache_out = MLA.mla_prefill(params["attn"], hn, spec, cfg,
-                                       positions, cache_len, q_chunk)
-    else:
-        a, cache_out = MLA.mla_decode(params["attn"], hn, spec, cfg, cache,
-                                      pos)
-    h = h + a
-    return h + mla_block_mlp(params, h, cfg, spec), cache_out
-
-
-def mla_block_mlp(params, h, cfg, spec):
-    """The MLP part of an MLASpec block on the residual ``h``: its MoE
-    (``spec.moe``) or its dense gated MLP."""
+def block_mlp(params, h, cfg, spec):
+    """The block's tail on the residual ``h``: ``h`` plus, on its second
+    norm, its MoE (``params["moe"]``, routed by the spec's ``MoESpec``
+    where it has one) or its dense MLP (``params["mlp"]``); ``h`` itself
+    where the block has neither."""
+    if "moe" not in params and "mlp" not in params:
+        return h
     hn2 = L.rms_norm(h, params["norm2"]["scale"], cfg.norm_eps)
-    if spec.moe is not None:
-        return MOE.moe_mlp(params["moe"], hn2, cfg, moe=spec.moe)
-    return L.mlp(params["mlp"], hn2, True)
+    if "moe" in params:
+        return h + MOE.moe_mlp(params["moe"], hn2, cfg,
+                               moe=getattr(spec, "moe", None))
+    return h + L.mlp(params["mlp"], hn2, cfg.mlp_gated,
+                     tp=L.split_over(cfg.d_ff))
+
+
+# each attention block's one-token decode over a paged cache, by its spec's
+# type; one signature (``layers.attention_paged_decode``)
+PAGED_DECODE = {AttnSpec: L.attention_paged_decode,
+                MLASpec: MLA.mla_paged_decode}
 
 
 def init_block(gen, cfg, spec, device=None, stack=None):
@@ -144,10 +139,6 @@ def apply_block(params, h, cfg, spec, *, mode, positions=None, cache=None,
                          f"{mode!r}")
     fam = _family(spec)
     hn = L.rms_norm(h, params["norm1"]["scale"], cfg.norm_eps)
-    if isinstance(spec, MLASpec):
-        return _apply_mla_block(params, h, hn, cfg, spec, mode=mode,
-                                positions=positions, cache=cache, pos=pos,
-                                cache_len=cache_len, q_chunk=q_chunk)
     cache_out = None
     if fam is not None:
         if mode == "decode":
@@ -159,7 +150,17 @@ def apply_block(params, h, cfg, spec, *, mode, positions=None, cache=None,
             y = fam.forward(params[fam.key], hn, cfg, spec)
         return h + y, cache_out
 
-    if mode == "train":
+    if isinstance(spec, MLASpec):
+        if mode == "train":
+            a = MLA.mla_train(params["attn"], hn, spec, cfg, positions,
+                              q_chunk)
+        elif mode == "prefill":
+            a, cache_out = MLA.mla_prefill(params["attn"], hn, spec, cfg,
+                                           positions, cache_len, q_chunk)
+        else:
+            a, cache_out = MLA.mla_decode(params["attn"], hn, spec, cfg,
+                                          cache, pos)
+    elif mode == "train":
         a = L.attention_train(params["attn"], hn, spec, cfg, positions,
                               q_chunk=q_chunk,
                               exact_causal_slices=exact_causal)
@@ -170,15 +171,7 @@ def apply_block(params, h, cfg, spec, *, mode, positions=None, cache=None,
     else:
         a, cache_out = L.attention_decode(params["attn"], hn, spec, cfg,
                                           cache, pos)
-    h = h + a
-    if _has_mlp(cfg, spec):
-        hn2 = L.rms_norm(h, params["norm2"]["scale"], cfg.norm_eps)
-        if cfg.moe_experts:
-            h = h + MOE.moe_mlp(params["moe"], hn2, cfg)
-        else:
-            h = h + L.mlp(params["mlp"], hn2, cfg.mlp_gated,
-                          tp=L.split_over(cfg.d_ff))
-    return h, cache_out
+    return block_mlp(params, h + a, cfg, spec), cache_out
 
 
 def init_block_cache(cfg, spec, batch, cache_len, dtype, device=None):

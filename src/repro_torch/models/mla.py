@@ -21,8 +21,9 @@ latent_dim): one latent "KV head"), and decode attends over it in the
 absorbed form: each head's query becomes ``[q_nope_h wkv_b[:, h, :nope]^T,
 q_pe_h]``, scored against the row, and its output ``(sum p c)
 wkv_b[:, h, nope:]``: the same function in another order, equal up to
-rounding.  The serving engine decodes through the paged latent kernel
-(``kernels/paged_attention/latent.py``) with ``absorb`` and ``unabsorb``.
+rounding.  ``mla_paged_decode`` is that decode over a paged cache, through
+the latent kernel (``kernels/paged_attention/latent.py``): the serving
+engine's, and ``mla_decode``'s over its dense cache.
 
 The block has no sharded layout: under an env that splits over ``model``
 (tensor or expert parallel), or splits rows or the cache over the data
@@ -174,17 +175,35 @@ def unabsorb(params, o_lat, spec, dt):
     return _out(params, o[:, None], dt)
 
 
-def mla_decode(params, x, spec, cfg, cache, pos):
-    """One-token decode over a dense latent cache (B, Smax, 1, latent_dim):
-    the row written at ``pos``, positions ``<= pos`` attended."""
+def mla_paged_decode(params, x, spec, cfg, pos, *, write, frames, tables,
+                     lengths, backend="auto"):
+    """One token's latent attention over a paged latent cache: x (B, 1,
+    d), pos (B,).  Its absorbed queries; its row stored by ``write(rows
+    (B, 1, latent_dim), None)``; the latent kernel over the rows of
+    ``frames`` (F, Tp, [1,] latent_dim) through ``tables[0]`` (B, W) up to
+    ``lengths`` (B,); the heads' outputs un-absorbed: (B, 1, d)."""
     refuse_sharding()
     q, row = absorb(params, x, spec, cfg, pos)
+    write(row[:, None], None)
+    o = latent_attention(q, frames, tables[0], lengths,
+                         dv=spec.kv_lora_rank, scale=scale_of(spec),
+                         backend=backend)
+    return unabsorb(params, o, spec, x.dtype)
+
+
+def mla_decode(params, x, spec, cfg, cache, pos):
+    """One-token decode over a dense latent cache (B, Smax, 1, latent_dim):
+    ``mla_paged_decode`` over it as B pages of Smax slots, sequence b in
+    page b, the row written at ``pos``, positions ``<= pos`` attended."""
     c = cache["c"].clone()
     B, Smax = c.shape[:2]
     bidx = torch.arange(B, device=x.device)
-    c[bidx, pos.to(torch.long), 0] = row
-    # the dense cache as B pages of Smax slots, sequence b in page b
-    o_lat = latent_attention(q, c.view(B, Smax, -1), bidx[:, None].int(),
-                             pos + 1, dv=spec.kv_lora_rank,
-                             scale=scale_of(spec), backend="torch")
-    return unabsorb(params, o_lat, spec, x.dtype), {"c": c}
+
+    def write(rows, _):
+        c[bidx, pos.to(torch.long)] = rows
+
+    y = mla_paged_decode(params, x, spec, cfg, pos, write=write,
+                         frames=c.view(B, Smax, -1),
+                         tables=(bidx[:, None].int(),), lengths=pos + 1,
+                         backend="torch")
+    return y, {"c": c}

@@ -75,10 +75,10 @@ def moe_mlp(params, x, cfg, return_aux=False, moe=None):
 
 def _moe_mlp_gspmd(params, x, cfg, return_aux=False, moe=None):
     """x: (B, S, D) -> (B, S, D). Token-choice top-k with capacity drop:
-    each expert takes at most ``cap = max(int(factor * T * K / E), 1)`` of
-    the T tokens (of the whole microbatch when these rows are a data
-    shard), in token order; the rest of its tokens get no output from it.
-    ``return_aux`` adds the Switch load-balance loss."""
+    each expert takes at most ``capacity(cfg, T)`` of the T tokens (of the
+    whole microbatch when these rows are a data shard), in token order;
+    the rest of its tokens get no output from it.  ``return_aux`` adds the
+    Switch load-balance loss."""
     t = ctx.tp()
     return _moe(params, x, cfg,
                 t if t is not None and moe_split(cfg, t.env) else None,
@@ -92,16 +92,21 @@ def moe_mlp_shardmap(params, x, cfg, env):
     return _moe(params, x, cfg, ctx.tp_of(env), [], False)
 
 
+def capacity(cfg, T: int) -> int:
+    """The tokens each expert takes of a call's ``T``: ``max(int(factor *
+    T * K / E), 1)``."""
+    return max(int(cfg.moe_capacity_factor * T * cfg.moe_topk
+                   / cfg.moe_experts), 1)
+
+
 def count_dropped(params, x, cfg) -> int:
     """Tokens the experts refuse in one single-device ``moe_mlp`` call on
     ``x``: the top-k choices past each expert's capacity."""
-    E, K = cfg.moe_experts, cfg.moe_topk
     xf = x.reshape(-1, x.shape[-1])
-    probs = torch.softmax((xf @ params["router"].to(x.dtype)).float(), -1)
-    counts = expert_counts(torch.topk(probs, K, dim=-1).indices.reshape(-1),
-                           E)
-    cap = max(int(cfg.moe_capacity_factor * xf.shape[0] * K / E), 1)
-    return int(torch.clamp(counts - cap, min=0).sum())
+    _, expert, _ = _route((xf @ params["router"].to(x.dtype)).float(),
+                          params, cfg.moe_topk, None)
+    counts = expert_counts(expert.reshape(-1), cfg.moe_experts)
+    return int(torch.clamp(counts - capacity(cfg, xf.shape[0]), min=0).sum())
 
 
 def expert_counts(ids, E: int) -> torch.Tensor:
@@ -168,7 +173,7 @@ def _moe(params, x, cfg, tp, groups, return_aux, moe=None):
         every = comm.gather_counts(counts, groups)                   # (n, E)
         rank = rank + every[:ctx.batch_index()].sum(0)[se]
         T_all = T * every.shape[0]
-    cap = max(int(cfg.moe_capacity_factor * T_all * K / E), 1)
+    cap = capacity(cfg, T_all)
     keep = rank < cap
     if tp is None:
         El, e0 = E, 0

@@ -1,23 +1,23 @@
 """Serving engine: continuous batching over a paged KV cache, with
 fork-based prefix sharing (the MITOSIS state-transfer path).
 
-Serves the dense and MoE attention architectures through a paged decode
-forward built from the same layer primitives as the model
-(models/layers.py, models/moe.py); recurrent archs (Mamba2, xLSTM) decode
+Serves the attention architectures, GQA blocks or latent-attention ones
+(MLASpec, models/mla.py), each with a dense or an MoE MLP, through the
+model layer's own pieces: each layer's paged decode (``lm.PAGED_DECODE``,
+chosen once per layer at construction by its spec's type) and the
+block's tail (``lm.block_mlp``).  Recurrent archs (Mamba2, xLSTM) decode
 through ``lm.decode_step``'s O(1) states instead, and the engine refuses
-them as the reference's does.  The
-decode attention runs through kernels/paged_attention (the CUDA kernel on
-the card, its plain version on the CPU), reading KV directly from the
-pool's frames tensor — children created by `fork_request` attend over the
-parent's pages with zero copies.
+them as the reference's does.  The decode attention runs through
+kernels/paged_attention or the latent kernel (kernels/paged_attention/
+latent.py), the CUDA kernel on the card, its plain version on the CPU,
+reading the cache directly from the pool's frames tensor: children
+created by `fork_request` attend over the parent's pages with zero copies.
 
-A model of latent-attention blocks (MLASpec, models/mla.py) is decided at
-construction: its cache is latent (one row per token and layer, no V
-pages), and each decode layer absorbs its queries, writes the token's row
-and attends through the latent kernel (kernels/paged_attention/latent.py)
-inside an ``attn.latent`` span; the bytes the kernel needs are counted
-in ``mla.latent_bytes`` once a step, from the host lengths.  A model of
-GQA blocks takes the GQA path alone; every kind shares one step body.
+The cache's layout is decided at construction: a latent model's holds one
+row per token and layer and no V pages.  A latent layer decodes inside an
+``attn.latent`` span, and the bytes the latent kernel needs are counted
+in ``mla.latent_bytes`` once a step, from the host lengths.  Every kind
+shares one step body.
 
 A decode step (``_decode_batch``) reserves its slots eagerly, copies its
 inputs once into static buffers (serving/graph.py), and runs one body
@@ -30,22 +30,27 @@ inside the body (``attn.latent``) then open only while it is captured.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch import _dtypes, tracing
 from repro_torch.configs.base import ArchConfig, AttnSpec, MLASpec
-from repro_torch.kernels.paged_attention.latent import (latent_attention,
-                                                        latent_bytes)
-from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.latent import latent_bytes
 from repro_torch.models import layers as L
 from repro_torch.models import lm
-from repro_torch.models import mla as MLA
-from repro_torch.models import moe as MOE
 from repro_torch.serving import graph
 from repro_torch.serving.kv_cache import PagedKV
 from repro_torch.serving.sampling import sample
+
+
+def _in_span(name, decode):
+    """``decode`` run inside a ``name`` span."""
+    def run(*args, **kw):
+        with tracing.span(name):
+            return decode(*args, **kw)
+    return run
 
 
 @dataclasses.dataclass
@@ -79,21 +84,19 @@ class ServingEngine:
         if gqa and mla:
             raise ValueError("paged engine serves GQA or latent attention, "
                              "not both in one model")
+        if len({s.latent_dim for s in mla}) > 1:
+            raise ValueError("latent rows of one width in every layer")
         self.latent = bool(mla)
+        # the cache's layout: heads, row width, the prefill cache's keys
+        heads, width, self._cache_keys = (
+            (1, mla[0].latent_dim, ("c",)) if self.latent
+            else (cfg.num_kv_heads, cfg.head_dim, ("k", "v")))
         self.params = params
         self.device = torch.device(device)
-        if self.latent:
-            if len({s.latent_dim for s in mla}) != 1:
-                raise ValueError("latent rows of one width in every layer")
-            self.kv = PagedKV(cfg.num_layers, 1, mla[0].latent_dim,
-                              page_tokens=page_tokens,
-                              dtype=cfg.compute_dtype, device=self.device,
-                              kernel_backend=backend, latent=True)
-        else:
-            self.kv = PagedKV(cfg.num_layers, cfg.num_kv_heads,
-                              cfg.head_dim, page_tokens=page_tokens,
-                              dtype=cfg.compute_dtype, device=self.device,
-                              kernel_backend=backend)
+        self.kv = PagedKV(cfg.num_layers, heads, width,
+                          page_tokens=page_tokens, dtype=cfg.compute_dtype,
+                          device=self.device, kernel_backend=backend,
+                          latent=self.latent)
         self.backend = backend
         self.eos_id = eos_id
         self.keep_logits = keep_logits
@@ -101,21 +104,26 @@ class ServingEngine:
         self.active: List[int] = []
         self.waiting: List[int] = []
         self._rid = 0
-        self._block_params = self._flatten_blocks()
+        self._layers = self._flatten_blocks()
         self._inputs: Optional[graph.StepInputs] = None  # the step's buffers
         self._graph: Optional[graph.StepGraph] = None  # its captured step
 
     def _flatten_blocks(self):
-        """Per-layer param slices (unstacked views for the python-loop path)."""
+        """Each layer's (spec, param slices, paged decode): the params
+        unstacked views for the python-loop path, the decode chosen by the
+        spec's type (``lm.PAGED_DECODE``), a latent layer's inside an
+        ``attn.latent`` span."""
         out = []
         for g, gp in zip(self.cfg.groups, self.params["groups"]):
             for r in range(g.repeat):
                 for bi, spec in enumerate(g.unit):
                     bp = gp["blocks"][bi]
-                    if getattr(spec, "shared", False):
-                        out.append((spec, bp))
-                    else:
-                        out.append((spec, lm._index_tree(bp, r)))
+                    if not getattr(spec, "shared", False):
+                        bp = lm._index_tree(bp, r)
+                    decode = lm.PAGED_DECODE[type(spec)]
+                    if isinstance(spec, MLASpec):
+                        decode = _in_span("attn.latent", decode)
+                    out.append((spec, bp, decode))
         return out
 
     # -- request lifecycle -----------------------------------------------------
@@ -154,7 +162,7 @@ class ServingEngine:
         req.seq_id = self.kv.new_seq()
         # flatten the grouped caches into (L, S, K, hd); a latent cache's
         # rows (L, S, 1, latent_dim)
-        names = ("c",) if self.latent else ("k", "v")
+        names = self._cache_keys
         flat = {n: [] for n in names}
         for g, gc in zip(self.cfg.groups, caches["groups"]):
             for r in range(g.repeat):               # execution order: repeat
@@ -220,9 +228,9 @@ class ServingEngine:
 
     def _body(self, x: graph.StepInputs):
         """The step on the static inputs ``x``, host values read from
-        nothing else: embedding, every layer (each writes its token's rows,
-        then attends), final norm, head, greedy token.  Returns (logits
-        (B, V), tokens (B,))."""
+        nothing else: embedding, every layer (its paged decode writes the
+        token's rows and attends, then the block's tail), final norm, head,
+        greedy token.  Returns (logits (B, V), tokens (B,))."""
         cfg = self.cfg
         B = x.B
         dt = _dtypes.torch_dtype(cfg.compute_dtype)
@@ -231,49 +239,18 @@ class ServingEngine:
         cols = (x.pos // self.kv.Tp).long()
         at = ([pt.gather(2, cols.expand(pt.shape[0], B)[..., None])[..., 0]
                .long() for pt in x.tables], (x.pos % self.kv.Tp).long())
-        G = cfg.num_heads // cfg.num_kv_heads
+        frames = self.kv.frames_view()
         h = L.embed_tokens(self.params["embed"], cfg, x.tokens[:, None], dt)
-        for li, (spec, bp) in enumerate(self._block_params):
+        for li, (spec, bp, decode) in enumerate(self._layers):
             hn = L.rms_norm(h, bp["norm1"]["scale"], cfg.norm_eps)
-            if self.latent:
-                with tracing.span("attn.latent"):
-                    h = h + self._latent_attention(at, li, spec, bp, hn, x)
-                h = h + lm.mla_block_mlp(bp, h, cfg, spec)
-                continue
-            q, k1, v1 = L._project_qkv(bp["attn"], hn, spec, cfg,
-                                       x.pos[:, None])
-            # write this token's K/V into the reserved slot, then attend
-            self._write_token(at, li, k1[:, 0], v1[:, 0])
-            frames = self.kv.frames_view()
-            qh = q[:, 0].reshape(B, cfg.num_kv_heads, G, cfg.head_dim)
-            starts = (torch.clamp(x.eff - spec.window, min=0)
-                      if spec.window is not None else None)
-            att = paged_attention(qh, frames, frames, x.tables[0][li], x.eff,
-                                  v_page_table=x.tables[1][li], starts=starts,
-                                  backend=self.backend)
-            a = att.reshape(B, 1, cfg.num_heads, cfg.head_dim)
-            y = torch.einsum("bshk,hkd->bsd", a, bp["attn"]["wo"].to(dt))
-            h = h + y
-            if "mlp" in bp or "moe" in bp:
-                hn2 = L.rms_norm(h, bp["norm2"]["scale"], cfg.norm_eps)
-                if "moe" in bp:
-                    h = h + MOE.moe_mlp(bp["moe"], hn2, cfg)
-                else:
-                    h = h + L.mlp(bp["mlp"], hn2, cfg.mlp_gated)
+            h = h + decode(bp["attn"], hn, spec, cfg, x.pos,
+                           write=functools.partial(self._write_token, at, li),
+                           frames=frames, tables=[t[li] for t in x.tables],
+                           lengths=x.eff, backend=self.backend)
+            h = lm.block_mlp(bp, h, cfg, spec)
         h = L.rms_norm(h, self.params["final_norm"]["scale"], cfg.norm_eps)
         logits = L.output_logits(self.params["embed"], cfg, h)[:, 0]
         return logits, sample(logits)      # greedy, as in the reference
-
-    def _latent_attention(self, at, li, spec, bp, hn, x: graph.StepInputs):
-        """Layer ``li``'s latent attention of one token per sequence: the
-        absorbed queries, the token's row written, the kernel over the
-        rows (``x.eff`` of them), the heads' outputs un-absorbed."""
-        q, row = MLA.absorb(bp["attn"], hn, spec, self.cfg, x.pos)
-        self._write_token(at, li, row[:, None], None)
-        o = latent_attention(q, self.kv.frames_view(), x.tables[0][li], x.eff,
-                             dv=spec.kv_lora_rank, scale=MLA.scale_of(spec),
-                             backend=self.backend)
-        return MLA.unabsorb(bp["attn"], o, spec, hn.dtype)
 
     def _write_token(self, at, layer, k_rows, v_rows) -> None:
         """Layer ``layer``'s rows of this token, k_rows/v_rows (B, K, hd)

@@ -20,7 +20,6 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
-from repro_torch.serving import engine as E  # noqa: E402
 from repro_torch.serving import graph  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
 
@@ -149,13 +148,13 @@ def _counted_serve(cfg, params, monkeypatch, captured: bool):
     """The scenario with the tracer on and every count reset; the plain
     attention counted as a launch with its route, as the kernel's wrapper
     does on the card."""
-    real = E.paged_attention
+    real = L.paged_attention
 
     def attention(*a, **kw):
         dispatch.count_launch("paged_attention", route="tma")
         return real(*a, **kw)
     with monkeypatch.context() as m:
-        m.setattr(E, "paged_attention", attention)
+        m.setattr(L, "paged_attention", attention)
         if captured:
             m.setattr(graph, "captures", lambda device: True)
             m.setattr(graph, "cuda_capture", _stand_in)

@@ -1,12 +1,20 @@
 """The port's Moonlight-16B-A3B block (latent attention over a paged latent
 cache, sigmoid-routed experts with shared experts, a leading dense layer)
 against the plain reference ``tests/reference_moonlight.py``, at small
-widths on the CPU, on seeded random weights."""
+widths on the CPU, on seeded random weights; and the block tail it shares
+with the GQA blocks, those held to the JAX package's."""
 import dataclasses
 import types
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
+
+from repro.models import layers as jL
+from repro.models import lm as jlm
+from repro.models import moe as jMOE
 
 from repro_torch.configs.base import (GroupSpec, MLASpec, MoESpec,
                                       get_arch)
@@ -16,10 +24,12 @@ from repro_torch.kernels.paged_attention.latent import latent_attention
 from repro_torch.models import lm
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.kv_cache import PagedKV
 
 import reference_moonlight as R
+from torch_parity import smoke_cfgs
 
 SEEDS = (3, 2 ** 31 + 5)
 ATTN = MLASpec(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
@@ -223,8 +233,63 @@ def test_the_leading_layer_is_dense(seed):
     g = torch.Generator().manual_seed(seed % 1000)
     h = torch.randn(1, 5, 64, generator=g)
     want = R.mlp(b0["mlp"], R.rms_norm(h[0], b0["norm2"]["scale"], 1e-5))
-    torch.testing.assert_close(lm.mla_block_mlp(b0, h, cfg, ATTN)[0], want,
-                               **TOL)
+    torch.testing.assert_close(lm.block_mlp(b0, h, cfg, ATTN)[0],
+                               h[0] + want, **TOL)
+
+
+def _gqa_block(arch, h, pos):
+    """A GQA block of ``arch`` at smoke size, the JAX package's weights
+    carried across: (port config, spec, params, the reference's block
+    output on ``h`` at ``pos``, the reference's tail on ``h``)."""
+    jc, tc = smoke_cfgs(arch)
+    spec = tc.groups[0].unit[0]
+    jp = jlm.init_block(jax.random.PRNGKey(5), jc, jc.groups[0].unit[0])
+    jh = jnp.asarray(h.numpy())
+    block, _ = jlm.apply_block(jp, jh, jc, jc.groups[0].unit[0],
+                               mode="train", positions=jnp.asarray(pos))
+    hn2 = jL.rms_norm(jh, jp["norm2"]["scale"], jc.norm_eps)
+    tail = jh + (jMOE.moe_mlp(jp["moe"], hn2, jc) if "moe" in jp
+                 else jL.mlp(jp["mlp"], hn2, jc.mlp_gated))
+    return (tc, spec, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu"),
+            torch.tensor(np.asarray(block)),
+            torch.tensor(np.asarray(tail)))
+
+
+def _mla_block(moe_layer, h, pos):
+    """Block 0 of the tiny Moonlight's dense or expert group: (config,
+    spec, params, the plain reference's block output, its tail)."""
+    cfg = tiny_cfg()
+    b = layer(params_of(cfg, 5), int(moe_layer))
+    hn = R.rms_norm(h[0], b["norm1"]["scale"], 1e-5)
+    mid = h[0] + R.attention(b["attn"], hn, pos[0], M)
+
+    def tail(x):
+        xn = R.rms_norm(x, b["norm2"]["scale"], 1e-5)
+        return x + (R.moe(b["moe"], xn, M) if moe_layer
+                    else R.mlp(b["mlp"], xn))
+    return (cfg, SPARSE if moe_layer else ATTN, b, tail(mid)[None],
+            tail(h[0])[None])
+
+
+@pytest.mark.parametrize("kind", ["gqa-dense", "gqa-moe", "mla-dense",
+                                  "mla-moe"])
+def test_block_mlp_is_the_reference_blocks_tail(kind):
+    """``lm.block_mlp``, the one tail of every attention block (norm2, then
+    the MoE or the dense MLP), against the reference's tail, and the whole
+    block through ``lm.apply_block`` against the reference's block
+    output."""
+    h = torch.randn(1, 5, 64, generator=torch.Generator().manual_seed(5))
+    pos = torch.arange(5)[None]          # every config here is 64 wide
+    if kind.startswith("gqa"):
+        cfg, spec, p, block, tail = _gqa_block(
+            "moonshot-v1-16b-a3b" if kind == "gqa-moe" else "stablelm-3b",
+            h, pos)
+    else:
+        cfg, spec, p, block, tail = _mla_block(kind == "mla-moe", h, pos)
+    assert ("moe" in p) == kind.endswith("moe")
+    torch.testing.assert_close(lm.block_mlp(p, h, cfg, spec), tail, **TOL)
+    got, _ = lm.apply_block(p, h, cfg, spec, mode="train", positions=pos)
+    torch.testing.assert_close(got, block, **TOL)
 
 
 def test_latent_attention_is_on_the_main_path_of_latent_models_only():

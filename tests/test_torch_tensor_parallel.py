@@ -170,9 +170,9 @@ def _port_drops(tc, tp, tok, lab, mb) -> int:
     from repro_torch.models import moe
     seen, orig = [], moe.moe_mlp
 
-    def spy(params, x, cfg, return_aux=False):
+    def spy(params, x, cfg, return_aux=False, **kw):
         seen.append(moe.count_dropped(params, x, cfg))
-        return orig(params, x, cfg, return_aux)
+        return orig(params, x, cfg, return_aux, **kw)
 
     moe.moe_mlp, n = spy, B // mb
     try:
