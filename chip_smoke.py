@@ -38,7 +38,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    at the moonlight cell's shapes (16 heads, rows of 576, values of 512,
    contexts of 256 to 4,128 tokens, a batch of three, a zero length),
    within 3e-5, its launch counted, timed like the others
-   (``latent_attention_cases``, ``run_latent_case``);
+   (``latent_attention_cases``, ``run_latent_case``); then the routed
+   experts kernel (``kernels/moe_experts.py``, which replaces no TPU
+   kernel) against its plain version at Mixtral's (D 4,096, F 14,336, 8
+   experts, top 2) and Moonlight's (D 2,048, F 1,408, 64 experts, top 6)
+   widths, one token and a prefill of 1,024 / 4,096 (and Mixtral's 256,
+   on the gemv tiles), within ``MOE_TOL``
+   of the largest output, each case's route (``gemv`` or ``tiled``)
+   counted, timed like the others, its bound the chosen experts' weight
+   bytes once or the routed flops (``moe_experts_cases``,
+   ``run_moe_case``);
 4. run the port's serve path (``repro_torch.launch.serve.main``) for
    gemma3-1b at full width: 3 nodes, a seed packed on node0, two children
    forked over the modelled RDMA network, 4 requests and the
@@ -230,6 +239,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory, data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside tensor cores
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+# routed experts against the plain version, fp32, as a share of the largest
+# output: two sums of up to 14,336 products in other orders, each off by
+# ~2^-24 sqrt(n), ~7e-6 of it
+MOE_TOL = 3e-5
 LOGIT_TOL = 1e-4                 # paged kernel vs dense model, fp32, card
 KERNELS = ("page_gather", "page_gather_runs", "cow_scatter",
            "cow_scatter_runs", "paged_attention")
@@ -1153,6 +1166,80 @@ def run_latent_case(torch, case):
             "bytes": nbytes, "flops": flops}
 
 
+def moe_experts_cases():
+    """(label, D, F, experts, top k, tokens, route): Mixtral's and
+    Moonlight's expert widths (the benchmark's two MoE configurations), a
+    decode step of one token and a prefill (Mixtral 1,024 tokens,
+    Moonlight 4,096: each cell's longest prompt); and Mixtral's cell's
+    median prompt, 256 tokens, which the gemv tiles take."""
+    return [("mixtral-decode", 4096, 14336, 8, 2, 1, "gemv"),
+            ("mixtral-prefill-256", 4096, 14336, 8, 2, 256, "gemv"),
+            ("mixtral-prefill", 4096, 14336, 8, 2, 1024, "tiled"),
+            ("moonlight-decode", 2048, 1408, 64, 6, 1, "gemv"),
+            ("moonlight-prefill", 2048, 1408, 64, 6, 4096, "tiled")]
+
+
+def run_moe_case(torch, case):
+    """The routed experts kernel against its plain version on one case of
+    ``moe_experts_cases``: each token's top k of random scores, the rows
+    sorted by expert as ``models/moe.py`` sorts them; the launch counted
+    under its route; times and the bound (the chosen experts' weights
+    read once with the rows in and out, or the routed flops at the fp32
+    peak, whichever is longer)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import moe_experts as mx
+    from repro_torch.models.moe import expert_counts
+    label, D, Fd, E, K, T, route = case
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(3)
+    w = [torch.randn(E, *s, generator=g, device=dev) * s[0] ** -0.5
+         for s in ((D, Fd), (D, Fd), (Fd, D))]
+    x = torch.randn(T, D, generator=g, device=dev)
+    expert = torch.rand(T, E, generator=g, device=dev).topk(K, -1).indices
+    flat = expert.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    counts = expert_counts(flat, E)
+    starts = torch.cumsum(counts, 0) - counts
+    h = x[torch.arange(T, device=dev).repeat_interleave(K)[order]]
+
+    def call(backend):
+        return mx.moe_experts(h, counts, starts, *w, backend=backend)
+    key = f"moe_experts.{route}"
+    before = dispatch.routes[key]
+    got = call("kernel")
+    if dispatch.routes[key] != before + 1:
+        raise AssertionError(f"moe_experts/{label}: no {key} launch counted")
+    want = call("torch")
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not err <= MOE_TOL * scale:
+        raise AssertionError(f"moe_experts/{label}: max abs err {err} > "
+                             f"{MOE_TOL} x {scale}")
+    if not torch.equal(call("kernel"), got):
+        raise AssertionError(f"moe_experts/{label}: two calls differ")
+    nbytes = mx.expert_bytes(counts.tolist(), D, Fd, True)
+    flops = mx.expert_flops(T * K, D, Fd, True)
+    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S)
+    r = {"name": "moe_experts", "case": label, "dtype": "float32",
+         "route": route, "D": D, "F": Fd, "E": E, "K": K, "tokens": T,
+         "experts_chosen": int((counts > 0).sum()), "max_abs_err": err,
+         "scale": scale, "tol": MOE_TOL * scale,
+         "ms": time_ms(torch, lambda: call("kernel")),
+         "plain_ms": time_ms(torch, lambda: call("torch"), reps=5),
+         "library_ms": None,
+         "device_ms": device_ms(torch, lambda: call("kernel"), 10),
+         "host_us": host_us(torch, lambda: call("kernel")),
+         "bound_ms": bound_s * 1e3,
+         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                      >= flops / FP32_FLOPS_PER_S else "operations"),
+         "bytes": nbytes, "flops": flops}
+    r["bound_share"] = r["bound_ms"] / r["device_ms"]
+    del w, h, got, want
+    torch.cuda.empty_cache()
+    return r
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1375,11 +1462,15 @@ def graph_serve(torch, cfg, params, dev, drive):
 def graph_pair(torch, cfg, params, dev, drive, what):
     """``drive`` on an engine on ``dev`` and on one on the CPU: tokens
     equal, logits within GRAPH_TOL, counters equal but the graph's own;
-    returns the card side's record and the largest logit error."""
+    returns the card side's record and the largest logit error.  The CPU
+    side's expert layers take the routed path too, through the kernel's
+    plain version, as the card's do."""
+    from repro_torch.models import moe
     cpu = torch.device("cpu")
     got = graph_serve(torch, cfg, map_tree(lambda t: t.to(dev), params),
                       dev, drive)
-    want = graph_serve(torch, cfg, params, cpu, drive)
+    with moe.routed_on("cpu"):
+        want = graph_serve(torch, cfg, params, cpu, drive)
     err = 0.0
     for rid, r in want[0].requests.items():
         g = got[0].requests[rid]
@@ -2831,6 +2922,10 @@ def main() -> int:
             rows.append(r)
     for case in latent_attention_cases():
         r = run_latent_case(torch, case)
+        print("[smoke] kernel " + json.dumps(r))
+        rows.append(r)
+    for case in moe_experts_cases():
+        r = run_moe_case(torch, case)
         print("[smoke] kernel " + json.dumps(r))
         rows.append(r)
     print("[smoke] paged_attention device us per call, by kernel, one "

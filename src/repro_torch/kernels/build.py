@@ -28,7 +28,8 @@ from typing import Dict
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paging", "bulk_copy", "paged_attention", "latent_attention")
+SOURCES = ("paging", "bulk_copy", "paged_attention", "latent_attention",
+           "moe_experts")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -18,7 +18,8 @@ each kernel wrapper adds one to :data:`launches` where it launches its
 kernel, the pages that launch moved to :data:`pages_moved`, and one to
 :data:`routes` under ``{entry}.{route}``: which of the kernel layer's paths
 took the call (copies: ``bulk-value``, ``bulk-device`` or ``copy_rows``;
-paged_attention: ``tma`` or ``loads``).  These counts are never drained,
+paged_attention: ``tma`` or ``loads``; moe_experts: ``gemv`` or
+``tiled``).  These counts are never drained,
 so a run can show which kernels and paths the main path went through.
 """
 from __future__ import annotations

@@ -26,6 +26,19 @@ Distributed (an env installed in ``distributed.ctx``):
   a rank computes its ``E / msize`` experts and the partial outputs are
   summed over ``model``.
 
+Where no token can drop, one device computes only the routed rows:
+``_moe`` takes the routed path (``_routed``) when the capacity is at least
+the call's T, the call is on one device with its experts whole, asks no
+load-balance loss, tracks no gradient, runs in float32 and is on the card,
+where the hand-written kernel (``kernels/moe_experts``) launches.  The
+sorted rows then go through their own experts alone: the same outputs as
+the dense dispatch, which there only adds padded rows.  Everything else
+keeps the dense dispatch and the reference's drop rule: the CPU, unless
+inside ``routed_on("cpu")`` (the tests, and ``chip_smoke.py``'s CPU side,
+run the kernel's plain version there), and the dry run's meta tensors.
+Counters: ``moe.expert_rows`` the rows the experts compute (T K routed,
+E C dense), ``moe.routed_calls`` the calls that took the routed path.
+
 One difference in form, none in value: the reference combines with a
 scatter-add (``out.at[st].add``).  Here each token sums its K weighted
 expert outputs in a fixed order (by expert id, the order the sorted
@@ -35,12 +48,16 @@ weights give bit-equal outputs.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch import tracing
+from repro_torch.core.descriptor import flatten_with_names
 from repro_torch.distributed import comm, ctx
 from repro_torch.distributed.sharding import moe_split
+from repro_torch.kernels.moe_experts import moe_experts
 from repro_torch.models.layers import _enter, _leave, init_mlp, mlp, ninit
 
 
@@ -90,6 +107,25 @@ def moe_mlp_shardmap(params, x, cfg, env):
     with a local sort and a capacity from their own T; the rank computes
     its ``E / msize`` experts and the parts are summed over ``model``."""
     return _moe(params, x, cfg, ctx.tp_of(env), [], False)
+
+
+# device types whose calls take the routed path: those where the grouped
+# expert kernel launches, and those ``routed_on`` adds for its block
+_ROUTED_DEVICES = ("cuda",)
+
+
+@contextlib.contextmanager
+def routed_on(device_type: str):
+    """Calls on ``device_type`` take the routed path too inside the block,
+    through the kernel's plain version off the card: the CPU's checks of
+    the path the card serves."""
+    global _ROUTED_DEVICES
+    before = _ROUTED_DEVICES
+    _ROUTED_DEVICES = before + (device_type,)
+    try:
+        yield
+    finally:
+        _ROUTED_DEVICES = before
 
 
 def capacity(cfg, T: int) -> int:
@@ -167,6 +203,63 @@ def _moe(params, x, cfg, tp, groups, return_aux, moe=None):
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
     counts = expert_counts(flat_e, E)
     starts = torch.cumsum(counts, 0) - counts
+    tracing.count("moe.routed_rows", T * K)      # host ints: no sync
+    if _routed(params, x, cfg, tp, groups, return_aux):
+        tracing.count("moe.routed_calls", 1)
+        tracing.count("moe.expert_rows", T * K)
+        y = moe_experts(xf[st], counts, starts, params["wi"].to(dt),
+                        params["wg"].to(dt) if cfg.mlp_gated else None,
+                        params["wd"].to(dt))
+        contrib = y * sg[:, None].to(dt)           # y in sorted order
+    else:
+        contrib = _dense(params, xf, cfg, tp, groups, se, st, sg, starts,
+                         counts)
+    # each token's K sorted positions, ascending = by expert id
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * K, device=dev)
+    slots = torch.sort(inv.reshape(T, K), dim=1).values
+    out = xf.new_zeros((T, D))
+    for k in range(K):
+        out = out + contrib[slots[:, k]]
+    if moe is not None:
+        tracing.count("moe.shared_rows", T)
+        out = out + mlp(params["shared"], xf, True)
+    out = _leave(out.reshape(B, S, D), tp)
+
+    if return_aux:
+        # Switch-style load-balance loss
+        me = probs.mean(0)                                            # (E,)
+        ce = expert_counts(flat_e, E) / (T * K)
+        aux = E * torch.sum(me * ce)
+        return out, aux
+    return out
+
+
+def _routed(params, x, cfg, tp, groups, return_aux) -> bool:
+    """Whether a call computes only its routed rows: no token can drop (the
+    capacity, a host int, is at least the call's T, so each expert keeps
+    all its rows), one device with the experts whole, no load-balance loss,
+    no gradient tracked (the kernel has no backward), float32 (the
+    kernel's), and on a device where it launches or ``routed_on`` names
+    (so not the dry run's meta tensors, whose counts stay the dense
+    dispatch's)."""
+    T = x.shape[0] * x.shape[1]
+    return (tp is None and not groups and not return_aux
+            and capacity(cfg, T) >= T and x.dtype == torch.float32
+            and x.device.type in _ROUTED_DEVICES
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or any(
+                         t.requires_grad
+                         for t in flatten_with_names(params)[2]))))
+
+
+def _dense(params, xf, cfg, tp, groups, se, st, sg, starts, counts):
+    """The dense dispatch: an (El, cap, D) buffer, capacity-dropping, through
+    this rank's El experts; the gate-weighted output of each sorted row
+    (zero where dropped)."""
+    E, K = cfg.moe_experts, cfg.moe_topk
+    T, D = xf.shape
+    dt, dev = xf.dtype, xf.device
     rank = torch.arange(T * K, device=dev) - starts[se]
     T_all = T
     if groups:      # the data shards of lower index come first
@@ -181,7 +274,6 @@ def _moe(params, x, cfg, tp, groups, return_aux, moe=None):
         El = E // tp.size
         e0 = tp.rank * El
         keep = keep & (se >= e0) & (se < e0 + El)
-    tracing.count("moe.routed_rows", T * K)      # host ints: no sync
     tracing.count("moe.expert_rows", El * cap)
     dest = torch.where(keep, (se - e0) * cap + rank,
                        torch.full_like(rank, El * cap))            # drop slot
@@ -202,23 +294,4 @@ def _moe(params, x, cfg, tp, groups, return_aux, moe=None):
     contrib = torch.where(keep[:, None],
                           y[torch.clamp(dest, max=El * cap - 1)],
                           torch.zeros((), dtype=dt, device=dev))
-    contrib = contrib * sg[:, None].to(dt)
-    # each token's K sorted positions, ascending = by expert id
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(T * K, device=dev)
-    slots = torch.sort(inv.reshape(T, K), dim=1).values
-    out = xf.new_zeros((T, D))
-    for k in range(K):
-        out = out + contrib[slots[:, k]]
-    if moe is not None:
-        tracing.count("moe.shared_rows", T)
-        out = out + mlp(params["shared"], xf, True)
-    out = _leave(out.reshape(B, S, D), tp)
-
-    if return_aux:
-        # Switch-style load-balance loss
-        me = probs.mean(0)                                            # (E,)
-        ce = expert_counts(flat_e, E) / (T * K)
-        aux = E * torch.sum(me * ce)
-        return out, aux
-    return out
+    return contrib * sg[:, None].to(dt)

@@ -19,6 +19,7 @@ from repro_torch import tracing  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serving import graph  # noqa: E402
 from repro_torch.serving.engine import ServingEngine  # noqa: E402
@@ -38,6 +39,14 @@ def tracer_off():
     yield
     tracing.disable()
     tracing.reset()
+
+
+@pytest.fixture
+def routed_on_the_cpu():
+    """The expert layers on the routed path, as the card's are, through the
+    grouped kernel's plain version."""
+    with MOE.routed_on("cpu"):
+        yield
 
 
 def _model(arch):
@@ -114,11 +123,19 @@ def test_rope_table_is_built_once_and_bit_equal():
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_engine_serves_what_the_model_and_the_reference_engine_do(arch):
+def test_engine_serves_what_the_model_and_the_reference_engine_do(
+        arch, routed_on_the_cpu):
+    """The expert layers on the routed path, which the card serves."""
     cfg, params, ref = _model(arch)
     eng = ServingEngine(cfg, params, page_tokens=TP, device="cpu",
                         keep_logits=True)
+    tracing.enable()
     reqs = _scenario(eng)
+    tracing.disable()
+    counts = tracing.snapshot()["counters"]
+    if cfg.moe_experts:
+        assert counts["moe.routed_calls"] > 0
+        assert counts["moe.expert_rows"] == counts["moe.routed_rows"]
     assert len(reqs) == 5 and eng.kv.pool.num_allocated() == 0
     tol = ML.TOL if ref is None else dict(atol=ATOL, rtol=0)
     for r in reqs:
@@ -172,11 +189,13 @@ def _counted_serve(cfg, params, monkeypatch, captured: bool):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_a_replay_counts_what_an_eager_step_counts(arch, monkeypatch):
+def test_a_replay_counts_what_an_eager_step_counts(arch, monkeypatch,
+                                                 routed_on_the_cpu):
     """Each replay adds the capture pass's counts (``moe.*``, the launches
     and routes, the backend meter), so a serve's counts equal the eager
     engine's; ``serve.graph_replays`` counts every decode step and
-    ``serve.graph_captures`` every ``serve.capture``, one per key."""
+    ``serve.graph_captures`` every ``serve.capture``, one per key.  The
+    expert layers take the routed path here, as on the card."""
     cfg, params, _ = _model(arch)
     eager, counts, spans, kernel = _counted_serve(cfg, params, monkeypatch,
                                                   False)
@@ -198,9 +217,10 @@ def test_a_replay_counts_what_an_eager_step_counts(arch, monkeypatch):
     else:
         assert kernel[1]["paged_attention"] == cfg.num_layers * steps
         assert kernel[3]["paged_attention.tma"] == cfg.num_layers * steps
-    if "moe" in arch:
+    if cfg.moe_experts:
         assert counts["moe.routed_rows"] > 0
         assert counts["moe.expert_rows"] >= counts["moe.routed_rows"]
+        assert gcounts["moe.routed_calls"] == counts["moe.routed_calls"] > 0
 
 
 def test_one_capture_per_request_and_a_replay_per_step(monkeypatch):
@@ -219,9 +239,11 @@ def test_one_capture_per_request_and_a_replay_per_step(monkeypatch):
     assert eng._inputs.W == -(-(2 * TP - 1 + 9) // TP)
 
 
-def test_chip_smoke_decode_graph_phase_rehearses_on_the_cpu(monkeypatch):
+def test_chip_smoke_decode_graph_phase_rehearses_on_the_cpu(
+        monkeypatch, routed_on_the_cpu):
     """The card script's decode-graph phase, checks and all, on the CPU with
-    the capture stood in by the body (its profiled trace is the card's)."""
+    the capture stood in by the body (its profiled trace is the card's),
+    the expert layers on the routed path as the card's are."""
     monkeypatch.setattr(graph, "captures", lambda device: True)
     monkeypatch.setattr(graph, "cuda_capture", _stand_in)
     out = load_chip_smoke().decode_graph_phase(torch, torch.device("cpu"))

@@ -158,18 +158,29 @@ def test_staged_bytes_equal_the_states_page_bytes():
     assert got["state_bytes"] > 0
 
 
+@pytest.mark.parametrize("path", ["dense", "routed"])
 @pytest.mark.parametrize("T", [1, 64])
-def test_moe_rows_useful_share_is_a_quarter_at_capacity_factor_4(T):
+def test_moe_rows_useful_share_is_a_quarter_at_capacity_factor_4(
+        T, path):
+    """The dense dispatch (here, as in training, with gradients tracked)
+    computes E cap = 4 T K rows for the T K routed ones; the routed path,
+    where no gradient is tracked (run here on the CPU through the kernel's
+    plain version), only those."""
     cfg = dataclasses.replace(CFG, moe_experts=8, moe_topk=2, moe_d_ff=32,
                               moe_capacity_factor=4.0)
     gen = torch.Generator().manual_seed(T)
     params = MOE.init_moe(gen, cfg, device="cpu")
+    if path == "dense":
+        params = {k: v.requires_grad_() for k, v in params.items()}
     x = torch.randn(1, T, cfg.d_model, generator=gen)
     tracing.enable()
-    MOE.moe_mlp(params, x, cfg)
+    with MOE.routed_on("cpu"):
+        MOE.moe_mlp(params, x, cfg)
     c = tracing.snapshot()["counters"]
     assert c["moe.routed_rows"] == 2 * T
-    assert c["moe.routed_rows"] / c["moe.expert_rows"] == 0.25
+    assert c["moe.routed_rows"] / c["moe.expert_rows"] == \
+        (0.25 if path == "dense" else 1.0)
+    assert c.get("moe.routed_calls", 0) == (path == "routed")
 
 
 def test_meters_stats_and_digests_are_the_same_on_and_off():
