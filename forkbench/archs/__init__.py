@@ -16,7 +16,9 @@ holds everything of the harness that depends on it:
 - the counts ``forkbench/roofline.py`` needs: ``block_params(m,
   active)``, ``state_bytes(m)``, ``prefill_work(m, P)`` and
   ``decode_work(m, ctx)`` as (FLOPs, bytes), and ``attention_bytes(m, P,
-  n_out)``.
+  n_out)``;
+- ``tiny(m)``: a tiny ``model`` dict of ``m``'s kind, from which the CPU
+  tests build each real cell's twin (``forkbench/conftest.py``).
 """
 from __future__ import annotations
 

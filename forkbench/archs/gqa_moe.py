@@ -55,6 +55,18 @@ def port_config(conf: dict):
         compute_dtype="float32", param_dtype="float32")
 
 
+def tiny(m: dict) -> dict:
+    """A tiny model of ``m``'s kind, for the benchmark's CPU tests: dense
+    where ``m`` has no experts, a mixture of experts where it has."""
+    moe = bool(m["moe_experts"])
+    return {"d_model": 64, "num_heads": 4, "num_kv_heads": 4 if moe else 2,
+            "head_dim": 16, "d_ff": 0 if moe else 128, "vocab_size": 256,
+            "num_layers": 2, "mlp_gated": True, "tie_embeddings": False,
+            "rope_theta": 10000.0, "norm_eps": 1e-5,
+            "moe_experts": 8 if moe else 0, "moe_topk": 2 if moe else 0,
+            "moe_d_ff": 32 if moe else 0, "moe_capacity_factor": 1.25}
+
+
 def leaves(m: dict) -> List[tuple]:
     """(path, shape, scale) of every leaf of model ``m``: the embedding,
     one block stacked over the layers, the final norm."""

@@ -79,6 +79,19 @@ def port_config(conf: dict):
         compute_dtype="float32", param_dtype="float32")
 
 
+def tiny(m: dict) -> dict:
+    """A tiny model of this architecture, for the benchmark's CPU tests:
+    a dense layer and two expert layers, 3 of 8 experts with shared ones,
+    a capacity that drops no token."""
+    return {"arch": "moonlight", "d_model": 64, "num_heads": 4,
+            "vocab_size": 256, "num_layers": 3, "dense_layers": 1,
+            "d_ff": 96, "kv_lora_rank": 32, "qk_nope_head_dim": 16,
+            "qk_rope_head_dim": 8, "v_head_dim": 16, "moe_experts": 8,
+            "moe_topk": 3, "moe_d_ff": 24, "moe_shared_d_ff": 48,
+            "moe_routed_scale": 2.446, "moe_capacity_factor": 11.0,
+            "tie_embeddings": False, "rope_theta": 50000.0, "norm_eps": 1e-5}
+
+
 def leaves(m: dict) -> List[tuple]:
     """(path, shape, scale) of every leaf of model ``m``: the embedding
     and the untied head, the dense group's block and the expert group's,

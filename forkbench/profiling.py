@@ -18,6 +18,7 @@ from collections import defaultdict
 LABEL = "forkbench."
 COPY_KERNELS = ("bulk_copy", "copy_rows")       # the port's page copies
 ATTENTION = ("paged_attention",)                 # the port's paged attention
+LATENT = ("latent_attention",)                   # its latent attention
 DTOH, HTOD = "Memcpy DtoH", "Memcpy HtoD"
 GAPS_NAMED = 2000         # the longest idle gaps given a host op's name
 NAME_CHARS = 120          # a kernel's name in the breakdown, cut to this
@@ -87,6 +88,8 @@ def _sums(dev, lo, hi) -> dict:
             out["copy_kernels"] += d
         elif any(k in name for k in ATTENTION):
             out["attention_kernels"] += d
+        elif any(k in name for k in LATENT):
+            out["latent_kernels"] += d
     return dict(out)
 
 

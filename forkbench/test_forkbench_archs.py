@@ -75,18 +75,24 @@ def _real(name: str) -> dict:
     return json.loads((BENCH / "configs" / f"{name}.json").read_text())
 
 
+def _tiny(kind: str) -> dict:
+    """The tiny configuration of the dense or the MoE kind, the twin of
+    the real configuration of that kind."""
+    real = _real("mixtral-8x7b-2L" if kind == "moe" else "stablelm-3b")
+    return tiny_config("tiny", real)
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("kind", ["dense", "moe"])
 def test_weights_and_reference_logits_are_bit_equal(kind, seed):
-    m = tiny_config("tiny", kind == "moe")["model"]
+    m = _tiny(kind)["model"]
     assert "arch" not in m and archs.load(m).__name__.endswith(".gqa_moe")
     assert _digests(m, seed) == DIGESTS[kind, seed]
 
 
 @pytest.mark.parametrize("name", sorted(PORTS))
 def test_the_program_config_is_the_same(name):
-    conf = (tiny_config("tiny", name == "moe") if name in ("dense", "moe")
-            else _real(name))
+    conf = _tiny(name) if name in ("dense", "moe") else _real(name)
     assert _sha(repr(harness.port_config(conf)).encode()) == PORTS[name]
 
 

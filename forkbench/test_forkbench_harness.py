@@ -3,6 +3,7 @@ a well-formed last line; new configuration, traffic and metric files are
 found by name; and with the timed path broken underneath, ``correct``
 comes out false."""
 import json
+import shutil
 import time
 from pathlib import Path
 
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 from forkbench import harness
-from forkbench.conftest import CELLS
+from forkbench.conftest import BENCH, CELLS, ROOT, make_root, twins
 
 SEED = 2 ** 31 + 11          # past 32 signed bits, as the driver's are
 
@@ -98,7 +99,6 @@ def test_new_files_are_found_by_name(tiny_root, monkeypatch):
     mix and a metric added as files, and named in BENCHMARK.json, keep the
     contract and run with no other edit; the per-layer metrics of the
     mix they share come with them."""
-    import shutil
     import sys
     from forkbench import archs, roofline
     from forkbench import weights as W
@@ -117,7 +117,7 @@ def test_new_files_are_found_by_name(tiny_root, monkeypatch):
     (b / "sources").mkdir()
     (b / "sources" / "tiny-deep.json").write_text(json.dumps(
         {"source": source, "config": published}))
-    conf = json.loads((b / "configs" / "tiny-dense.json").read_text())
+    conf = json.loads((b / "configs" / "tiny-stablelm-3b.json").read_text())
     conf["name"] = conf["port"]["name"] = "tiny-deep"
     conf["model"].update(num_layers=5, arch="two_groups")
     conf.update(published, num_hidden_layers=5, source=source,
@@ -150,7 +150,7 @@ def test_new_files_are_found_by_name(tiny_root, monkeypatch):
     e2e, layer = harness.cell_metrics(bench, "tiny-deep.coldstart")
     assert {m["name"] for m in layer} == {
         m["name"] for m in harness.cell_metrics(
-            bench, "tiny-dense.coldstart")[1]}
+            bench, "tiny-stablelm-3b.coldstart")[1]}
     cell = harness.load_cell(tiny_root, "tiny-deep.one-token")
     assert Path(cell.arch.__file__) == b / "archs" / "two_groups.py"
     assert Path(cell.arch._ref.__file__) == b / "reference" / "two_groups.py"
@@ -166,6 +166,74 @@ def test_new_files_are_found_by_name(tiny_root, monkeypatch):
     # max_tokens 1: the prefill's token, and one decode step past it
     assert out["metrics"]["tokens_served"]["value"] == 2 * out["attempted"]
     assert "setup_s" in out["metrics"] and "invoke_s" not in out["metrics"]
+
+
+NEW_CELL = "mixtral-8x7b-4L.warm"
+
+
+def _with_a_new_cell(src: Path) -> None:
+    """The benchmark's files under ``src``, with a second configuration of
+    an existing architecture and a cell of it added as new files, the
+    cell named in ``invoke_p50_s``'s list and in that of a new per-layer
+    metric, ``served_tokens``, whose reader is a new file too."""
+    for d in ("configs", "traffic", "metrics"):
+        shutil.copytree(BENCH / d, src / BENCH.name / d)
+    conf = json.loads((BENCH / "configs" / "mixtral-8x7b-2L.json").read_text())
+    conf.update(name="mixtral-8x7b-4L", num_hidden_layers=4)
+    conf["port"]["name"] = conf["name"]
+    conf["model"]["num_layers"] = 4
+    (src / BENCH.name / "configs" / "mixtral-8x7b-4L.json").write_text(
+        json.dumps(conf))
+    (src / BENCH.name / "metrics" / "served_tokens.py").write_text(
+        "def read(run):\n"
+        "    return float(sum(len(v.tokens) for v in run.ok))\n")
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": conf["name"], "source": conf["source"],
+                             "file": "forkbench/configs/mixtral-8x7b-4L.json",
+                             "reduced": ["num_hidden_layers"],
+                             "why": "a CPU test"})
+    bench["workloads"].append({"name": NEW_CELL, "config": conf["name"],
+                               "traffic": "warm", "chips": 1,
+                               "why": "a CPU test"})
+    p50 = next(m for m in bench["end_to_end"] if m["name"] == "invoke_p50_s")
+    p50["workloads"].append(NEW_CELL)
+    bench["per_layer"].append({"name": "served_tokens", "unit": "tokens",
+                               "better": "higher", "source": "host_clock",
+                               "layer": "serving", "moves": "invoke_p50_s",
+                               "workloads": [NEW_CELL]})
+    (src / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_a_new_cell_is_taken_from_new_files_only(tmp_path, trace):
+    """A cell added to the benchmark as new files and named in metrics'
+    lists gets a tiny twin of its own from ``make_root``, with no edit to
+    the CPU tests' fixtures; the twin reports the metrics listed for it,
+    and every real cell's twin keeps its metrics."""
+    src = tmp_path / "real"
+    _with_a_new_cell(src)
+    twin = twins(src)[2][NEW_CELL]
+    assert twin == "tiny-mixtral-8x7b-4L.warm" and twin not in CELLS
+    root = make_root(tmp_path / "tiny", src)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    e2e, layer = harness.cell_metrics(bench, twin)
+    assert {"invoke_p50_s", "peak_device_gb", "setup_s"} == {
+        m["name"] for m in e2e}
+    assert {"served_tokens", "kv_cache_gb"} == {m["name"] for m in layer}
+    usual = json.loads((make_root(tmp_path / "usual") / "BENCHMARK.json")
+                       .read_text())
+    names = lambda b, cell: [[m["name"] for m in ms]
+                             for ms in harness.cell_metrics(b, cell)]
+    for cell in CELLS:
+        assert names(bench, cell) == names(usual, cell)
+    out = run_cell(root, twin, bool(trace))
+    assert out["correct"] is True and out["failed"] == 0
+    want = {m["name"] for m in (e2e, layer)[trace]} - {"peak_device_gb"}
+    assert want <= set(out["metrics"]) <= want | {"peak_device_gb"}
+    if trace:
+        # one prefill token and the decode steps past it, each request
+        assert out["metrics"]["served_tokens"]["value"] >= 2 * out[
+            "attempted"]
 
 
 def _alter_token(monkeypatch):
@@ -222,11 +290,9 @@ def test_the_control_fails_the_limit(tiny_root, cell):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", ["stablelm-3b.coldstart",
-                                  "mixtral-8x7b-2L.warm",
-                                  "mixtral-8x7b-2L.coldstart"])
+@pytest.mark.parametrize("cell", [w["name"] for w in json.loads(
+    (ROOT / "BENCHMARK.json").read_text())["workloads"]])
 def test_a_cell_is_correct_on_the_card(cuda, cell):
-    from forkbench.conftest import ROOT
     out = harness.run(harness.load_cell(ROOT, cell), SEED, 10.0, False, cuda,
                       time.perf_counter())
     assert out["correct"], out["checks"]

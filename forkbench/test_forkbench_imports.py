@@ -18,7 +18,7 @@ import torch
 from forkbench import harness
 from forkbench.conftest import make_root
 root = make_root(Path(sys.argv[1]))
-for cell in ("tiny-dense.coldstart", "tiny-moe.warm"):
+for cell in ("tiny-stablelm-3b.coldstart", "tiny-mixtral-8x7b-2L.warm"):
     out = harness.run(harness.load_cell(root, cell), 2 ** 31 + 3, 0.3, True,
                       torch.device("cpu"), time.perf_counter())
     assert out["correct"], out

@@ -5,60 +5,26 @@ shared experts, a leading dense layer) and is correct against
 ``forkbench/reference/moonlight.py``; a broken timed path and the TF32
 control are not; the real configuration's published keys and counts."""
 import json
+import time
 
 import pytest
+import torch
 
 from forkbench import archs, harness, roofline
 from forkbench import weights as W
-from forkbench.conftest import BENCH, tiny_config, tiny_mix
-from forkbench.test_forkbench_harness import (_alter_token, _corrupt_page,
-                                              _skip_kv_write, run_cell)
+from forkbench.conftest import BENCH, REAL
+from forkbench.test_forkbench_harness import (SEED, _alter_token,
+                                              _corrupt_page, _skip_kv_write,
+                                              run_cell)
 
-CELL = "tiny-moonlight.warm-long"
-TINY = {"arch": "moonlight", "d_model": 64, "num_heads": 4,
-        "vocab_size": 256, "num_layers": 3, "dense_layers": 1, "d_ff": 96,
-        "kv_lora_rank": 32, "qk_nope_head_dim": 16, "qk_rope_head_dim": 8,
-        "v_head_dim": 16, "moe_experts": 8, "moe_topk": 3, "moe_d_ff": 24,
-        "moe_shared_d_ff": 48, "moe_routed_scale": 2.446,
-        "moe_capacity_factor": 11.0, "tie_embeddings": False,
-        "rope_theta": 50000.0, "norm_eps": 1e-5}
-# what the cell reports here beyond the benchmark's own entries: the
-# latency and the two per-layer readings of the moonlight cell
-LISTED = ("invoke_p50_s", "invoke_p90_s")
-LAYER = ({"name": "latent_attention_roofline.warm-long", "unit": "%",
-          "better": "higher", "source": "device_trace", "layer": "kernels",
-          "moves": "invoke_p90_s"},
-         {"name": "moe_useful_pct.warm-long", "unit": "%",
-          "better": "higher", "source": "program_counter",
-          "layer": "serving", "moves": "invoke_p90_s"})
-
-
-@pytest.fixture
-def moon_root(tiny_root):
-    b = tiny_root / BENCH.name
-    conf = dict(tiny_config("tiny-moonlight", False), model=dict(TINY))
-    conf["port"] = {"arch": "moonlight-16b-a3b", "name": "tiny-moonlight"}
-    (b / "configs" / "tiny-moonlight.json").write_text(json.dumps(conf))
-    (b / "traffic" / "warm-long.json").write_text(
-        json.dumps(tiny_mix("warm-long")))
-    bench = json.loads((tiny_root / "BENCHMARK.json").read_text())
-    bench["configs"].append({"name": "tiny-moonlight", "source": "tiny",
-                             "file": "forkbench/configs/tiny-moonlight.json",
-                             "reduced": [], "why": "a CPU test"})
-    bench["workloads"].append({"name": CELL, "config": "tiny-moonlight",
-                               "traffic": "warm-long", "chips": 1,
-                               "why": "a CPU test"})
-    for m in bench["end_to_end"]:
-        if m["name"] in LISTED:
-            m["workloads"].append(CELL)
-    bench["per_layer"] += [dict(m, workloads=[CELL]) for m in LAYER]
-    (tiny_root / "BENCHMARK.json").write_text(json.dumps(bench))
-    return tiny_root
+CELL = REAL["moonlight-16b-a3b-5L.warm-long"]
 
 
 @pytest.mark.parametrize("trace", [0, 1])
-def test_a_moonlight_cell_runs_and_is_correct(moon_root, trace):
-    out = run_cell(moon_root, CELL, bool(trace), seconds=0.8)
+def test_a_moonlight_cell_runs_and_is_correct(tiny_root, trace):
+    out, rec = harness.run_record(harness.load_cell(tiny_root, CELL), SEED,
+                                  0.8, bool(trace), torch.device("cpu"),
+                                  time.perf_counter())
     assert out["correct"] is True and out["failed"] == 0, out["checks"]
     assert out["checks"]["fork_mismatch"]["value"] == 0
     got = out["metrics"]
@@ -67,45 +33,69 @@ def test_a_moonlight_cell_runs_and_is_correct(moon_root, trace):
         return
     # the CPU run has no device events: no kernel share to read
     assert "latent_attention_roofline.warm-long" not in got
+    # but the bytes the share counts are the program's own count of them
+    prof = rec.mix["profile"]
+    traced = [v for v in rec.ok
+              if prof["first"] <= v.index < prof["first"] + prof["count"]]
+    assert traced and sum(
+        roofline.attention_bytes(rec.model, v.prompt_len, len(v.tokens))
+        for v in traced) == rec.counters["mla.latent_bytes"]
     useful = got["moe_useful_pct.warm-long"]["value"]
-    # 3 of 8 experts; each computes int(11 * T * 3 / 8) >= T rows of a
-    # call of T tokens: 9.375% at a decode step, just under in a prefill
-    assert 9.0 < useful <= 100 * 3 / (8 * 4)
+    if rec.counters.get("moe.routed_calls", 0) > 0:
+        # the routed path computes the routed rows and no others
+        assert useful == 100.0
+    else:
+        # the dense path: 3 of 8 experts, each computing int(11 * T * 3 /
+        # 8) >= T rows of a call of T tokens: 9.375% at a decode step,
+        # just under in a prefill
+        assert 9.0 < useful <= 100 * 3 / (8 * 4)
     assert got["kv_cache_gb"]["value"] > 0
 
 
 def test_the_readers_of_the_latent_kernel_and_the_cache():
-    """The latent roofline reads the ``mla.latent_bytes`` counter over the
-    device time of the kernels named ``latent_attention`` in the profiled
-    sub-window; the cache reading the ``kv.page_bytes`` counter per traced
-    invocation."""
+    """The latent roofline reads the bytes the architecture counts from
+    each traced request's lengths over the device time of the kernels
+    named ``latent_attention`` in its serve span; the cache reading the
+    ``kv.page_bytes`` counter per traced invocation."""
     import types
+    from forkbench import profiling
     from forkbench.conftest import ROOT
+    m = json.loads((BENCH / "configs"
+                    / "moonlight-16b-a3b-5L.json").read_text())["model"]
+    serve = profiling._sums([(0, 500, "paged_attention_kernel"),
+                             (100, 1100, "latent_attention_kernel"),
+                             (1100, 2100, "latent_attention_combine"),
+                             (2100, 9100, "gemv")], 0, 10_000)
+    assert serve["latent_kernels"] == 2e-6
     span = types.SimpleNamespace(name="invoke", parent=-1)
+    req = lambda i: types.SimpleNamespace(index=i, prompt_len=1000,
+                                          tokens=[5, 6])
     run = types.SimpleNamespace(
-        counters={"mla.latent_bytes": int(3.35e6), "kv.page_bytes": 8_000},
-        device_events=[(100, 1100, "latent_attention_kernel"),
-                       (1100, 2100, "latent_attention_combine"),
-                       (2100, 9100, "gemv"), (9_000_000, 9_001_000,
-                                              "latent_attention_kernel")],
-        profiled=(0, 10_000), spans=[span, span])
+        model=m, ok=[req(1), req(2)],
+        trace={"invocations": {1: {"serve": serve},
+                               2: {"serve": {"latent_kernels": 0.0}}}},
+        counters={"kv.page_bytes": 8_000}, spans=[span, span])
     roof = harness.reader(ROOT, "latent_attention_roofline.warm-long")(run)
-    assert roof == pytest.approx(100.0 * 1e-6 / 2e-6)
+    need = 5 * 4 * (1001 * 576 + 16 * (576 + 512))
+    assert roof == pytest.approx(100.0 * need / roofline.PEAK_BYTES / 2e-6)
+    run.trace["invocations"][1] = {"serve": {"attention_kernels": 1e-6}}
+    assert harness.reader(ROOT, "latent_attention_roofline.warm-long")(
+        run) is None
     assert harness.reader(ROOT, "kv_cache_gb")(run) == 4e-6
 
 
 @pytest.mark.parametrize("fault", [_alter_token, _skip_kv_write,
                                    _corrupt_page])
-def test_a_broken_moonlight_path_is_not_correct(moon_root, fault,
+def test_a_broken_moonlight_path_is_not_correct(tiny_root, fault,
                                                 monkeypatch):
     fault(monkeypatch)
-    out = run_cell(moon_root, CELL)
+    out = run_cell(tiny_root, CELL)
     assert out["correct"] is False
     assert any(c["value"] > c["limit"] for c in out["checks"].values())
 
 
-def test_the_tf32_control_of_moonlight_fails_the_limit(moon_root):
-    out = run_cell(moon_root, CELL, seconds=1.5, control=True)
+def test_the_tf32_control_of_moonlight_fails_the_limit(tiny_root):
+    out = run_cell(tiny_root, CELL, seconds=1.5, control=True)
     assert out["correct"] is True and out["control"]["correct"] is False
     limit = out["checks"]["logit_err_p90"]["limit"]
     assert out["control"]["checks"]["logit_err_p90"]["value"] > limit

@@ -7,7 +7,7 @@ import torch
 
 from forkbench import harness
 from forkbench import weights as W
-from forkbench.conftest import tiny_config
+from forkbench.conftest import CONFS
 from forkbench.reference.model import Reference, round_tf32
 
 
@@ -15,7 +15,8 @@ from forkbench.reference.model import Reference, round_tf32
 @pytest.mark.parametrize("seed", [3, 2 ** 31 + 5])
 def test_reference_matches_the_program(moe, seed):
     from repro_torch.models import lm
-    conf = tiny_config("tiny", moe)
+    conf = CONFS["tiny-mixtral-8x7b-2L" if moe
+                 else "tiny-stablelm-3b"]
     m, cfg = conf["model"], harness.port_config(conf)
     w = W.make(m, seed, "cpu")
     g = torch.Generator().manual_seed(seed % 1000)

@@ -52,7 +52,7 @@ def test_tracer_on_the_readings_read_a_value(tiny_root, cell):
 
 
 def test_tracer_off_records_nothing(tiny_root):
-    out = traced(tiny_root, "tiny-dense.coldstart", "off")
+    out = traced(tiny_root, "tiny-stablelm-3b.coldstart", "off")
     assert out["result"]["correct"] is True
     got = out["spans"]
     assert got["n_spans"] == 0 and got["counters"] == {}
@@ -94,8 +94,8 @@ def test_an_untraced_run_never_turns_the_tracer_on(tiny_root, monkeypatch):
         raise AssertionError("the tracer was turned on")
     monkeypatch.setattr(tracing, "enable", enable)
     out, rec = harness.run_record(
-        harness.load_cell(tiny_root, "tiny-moe.coldstart"), SEED, 0.6, False,
-        torch.device("cpu"), time.perf_counter())
+        harness.load_cell(tiny_root, "tiny-mixtral-8x7b-2L.coldstart"), SEED,
+        0.6, False, torch.device("cpu"), time.perf_counter())
     assert out["correct"] is True and not tracing.enabled()
     assert rec.spans == [] and rec.counters == {} and rec.forks_traced == 0
     assert all(v.request is None for v in rec.invocations)
